@@ -1,0 +1,581 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (`mtgs_torch`) on one GPU.
+
+Drives the port's serving path through the entry points a user calls —
+`scene_from_state_dict` -> `evaluate_scene` -> `render_view` ->
+`rasterize` — at the full width of the `mtgs` preset (960x540, tile 32,
+antialiased, RGB+ED with predicted normals, max_intersections 2^21) on a
+~1M-gaussian scene made from `--seed`, and holds both hand-written CUDA
+kernels (`csrc/expand_fused.cu`, `csrc/blend_forward.cu`) against their
+plain PyTorch versions. Phases, each of which raises on failure:
+
+  1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA;
+  2. build: both kernels compiled with nvcc for sm_90a, in parallel;
+  3. goldens: the kernel path's rasterize on the four gsplat-math goldens
+     in tests/goldens/ (render 2e-3, alpha 1e-3);
+  4. main path: the scene in the JAX state-dict layout, carried across
+     with `scene_from_state_dict`; ground truth for each view is the
+     plain path's render on the card (the same code with the two kernel
+     wrappers swapped for their plain versions); `evaluate_scene` over
+     the views with the launch counters zeroed just before and read just
+     after. Every view of that run is held against its own plain render:
+     rgb, rgb_appearance and normal within 2e-3, accumulation within
+     1e-3, depth within 1e-3 relative where alpha > 1e-2, the view's PSNR
+     >= 50 dB; depth RMSE <= 1e-3 m; every kernel must have launched once
+     per view, and no view may truncate (n_intersections <=
+     max_intersections);
+  5. kernels: each kernel against its plain version at the shapes of one
+     main-path view, timed with CUDA events (median of 20 after warm-up),
+     with the least time the card could take for the same work.
+
+Prints the card line, the `{"kernels": [...]}` line and, last,
+`{"ok": true, "device": {...}}`; `--out DIR` also writes everything
+measured to DIR/chip_smoke.json. Exits non-zero without a CUDA device.
+
+Run from the repository root:  python3 chip_smoke.py [--seed 0]
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import importlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from mtgs_torch import configs
+from mtgs_torch.eval.metrics import masked_psnr
+from mtgs_torch.eval.pipeline import EvalConfig, evaluate_scene
+from mtgs_torch.models.convert import scene_from_state_dict
+from mtgs_torch.models.gaussians import init_skybox_node, node_capacity
+from mtgs_torch.raster import RasterizeConfig, blend, cuda_build, expand_fused, rasterize
+from mtgs_torch.raster.chunk_math import NUM_GEOM
+from mtgs_torch.train.trainer import Batch, render_view
+
+# the modules (the packages' attributes of these names are functions)
+rasterize_mod = importlib.import_module("mtgs_torch.raster.rasterize")
+pipeline_mod = importlib.import_module("mtgs_torch.eval.pipeline")
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+
+BLEND_TOL = 1e-4        # f32 rounding of the same formulation
+BLEND_FLIP_TOL = 2e-3   # a pixel where an alpha = 1/255 or sigma = 0 cut-off flips
+PSNR_MIN = 50.0
+# each view of the kernel path against its plain render (the golden
+# tolerances the CPU tests hold the port to against the JAX package)
+VIEW_TOL = dict(rgb=2e-3, rgb_appearance=2e-3, normal=2e-3, accumulation=1e-3)
+DEPTH_REL_TOL = 1e-3    # where alpha > 1e-2
+DEPTH_RMSE_MAX = 1e-3   # metres, against the plain depth where alpha > 0.5
+N_TRAVELS = 3
+N_FRAMES = 8
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def require(ok, msg: str) -> None:
+    if not ok:
+        raise AssertionError(msg)
+
+
+# ----------------------------------------------------------------- scene
+
+def _logit(p):
+    return np.log(p / (1.0 - p)).astype(np.float32)
+
+
+def _random_quats(rng, n):
+    return rng.normal(size=(n, 4)).astype(np.float32)
+
+
+def _node_sd(means, log_scales, quats, dc, rest, opac_logit, adapters, cap):
+    """One node in the JAX state-dict layout, padded to `cap` rows."""
+    n = len(means)
+
+    def pad(a):
+        out = np.zeros((cap,) + a.shape[1:], np.float32)
+        out[:n] = a
+        return out
+
+    node = dict(means=pad(means), scales=pad(log_scales), quats=pad(quats),
+                features_dc=pad(dc), features_rest=pad(rest),
+                opacities=pad(opac_logit), features_adapters=pad(adapters),
+                fourier_dc=np.zeros((cap, 0, 3), np.float32))
+    node["scales"][n:] = -5.0
+    alive = np.zeros((cap,), np.float32)
+    alive[:n] = 1.0
+    return node, dict(alive=alive, num_alive=np.array(n, np.int32))
+
+
+def make_scene_state(seed: int, n_bg: int, n_sky: int, n_inst: int):
+    """The scene as the JAX package's `to_state_dict` gives it (numpy
+    leaves): a multicolour background in bench.py's driving layout (ground
+    carpet + structures, opacities 0.3-0.95) with per-traversal SH degree 3
+    rest, a spheric skybox (`init_skybox_node` defaults) and one rigid
+    instance with N_FRAMES poses."""
+    rng = np.random.default_rng(seed)
+    n_ground = (n_bg * 3) // 5
+    n_struct = n_bg - n_ground
+    ground = np.stack([rng.uniform(-60, 60, n_ground), rng.uniform(-20, 20, n_ground),
+                       np.zeros(n_ground)], -1)
+    struct = np.stack([rng.uniform(-60, 60, n_struct), rng.uniform(-25, 25, n_struct),
+                       rng.uniform(0, 12, n_struct)], -1)
+    means = np.concatenate([ground, struct]).astype(np.float32)
+    log_scales = np.concatenate([rng.normal(-2.3, 0.4, (n_ground, 3)),
+                                 rng.normal(-2.0, 0.5, (n_struct, 3))]).astype(np.float32)
+    bg, bg_aux = _node_sd(
+        means, log_scales, _random_quats(rng, n_bg),
+        rng.normal(0.0, 0.8, (n_bg, 3)).astype(np.float32),
+        (0.15 * rng.normal(size=(n_bg, N_TRAVELS, 15, 3))).astype(np.float32),
+        _logit(rng.uniform(0.3, 0.95, (n_bg, 1))),
+        (0.2 * rng.normal(size=(n_bg, N_TRAVELS, 3))).astype(np.float32),
+        node_capacity(n_bg))
+
+    sky_p, sky_a = init_skybox_node(num_points=n_sky, seed=seed + 1, device="cpu")
+    sky = {f: getattr(sky_p, f).numpy() for f in (
+        "means", "scales", "quats", "features_dc", "features_rest", "opacities",
+        "features_adapters", "fourier_dc")}
+    sky_aux = dict(alive=sky_a.alive.numpy(), num_alive=sky_a.num_alive.numpy())
+
+    box = np.array([4.5, 2.0, 1.6], np.float32)
+    local = (rng.uniform(-0.5, 0.5, (n_inst, 3)) * box).astype(np.float32)
+    node, node_aux = _node_sd(
+        local, rng.normal(-2.5, 0.3, (n_inst, 3)).astype(np.float32),
+        _random_quats(rng, n_inst), rng.normal(0.0, 0.8, (n_inst, 3)).astype(np.float32),
+        (0.15 * rng.normal(size=(n_inst, 15, 3))).astype(np.float32),
+        _logit(rng.uniform(0.5, 0.95, (n_inst, 1))),
+        np.zeros((n_inst, 0, 3), np.float32), node_capacity(n_inst))
+    yaw = rng.uniform(-0.2, 0.2, N_FRAMES)
+    inst_q = np.stack([np.cos(yaw / 2), 0 * yaw, 0 * yaw, np.sin(yaw / 2)], -1)
+    inst_t = np.stack([np.linspace(-40, -30, N_FRAMES), rng.uniform(-2, 2, N_FRAMES),
+                       np.full(N_FRAMES, 0.8)], -1)
+    travel_of_frame = np.array([0, 0, 0, 1, 1, 1, 2, 2], np.int32)
+    instances = dict(node={k: v[None] for k, v in node.items()},
+                     quats=inst_q[None].astype(np.float32),
+                     trans=inst_t[None].astype(np.float32))
+    inst_aux = dict(
+        alive=node_aux["alive"][None], num_alive=node_aux["num_alive"][None],
+        present=np.ones((1, N_FRAMES), np.float32), is_static=np.zeros((1,), np.float32),
+        frame_timestamps=np.array([0, .5, 1, 0, .5, 1, 0, 1], np.float32),
+        travel_of_frame=travel_of_frame, sizes=box[None])
+
+    appearance = np.tile(np.concatenate([np.eye(3), np.zeros((3, 1))], 1), (3, 1, 1))
+    appearance[1, :, :3] *= 0.95
+    appearance[2, :, 3] += 0.02
+    params = dict(background=bg, skybox=sky, instances=instances, deformables=None,
+                  appearance=appearance.astype(np.float32),
+                  camera_opt=np.zeros((N_FRAMES, 6), np.float32), wild=None)
+    aux = dict(background=bg_aux, skybox=sky_aux, instances=inst_aux, deformables=None)
+    return params, aux
+
+
+def make_views(seed: int, n_views: int, width: int, height: int, focal: float):
+    """Eval views spread over the traversals: cameras near bench.py's
+    (x = -55, 1.6 m up, looking along +x), each on one instance frame."""
+    rng = np.random.default_rng(seed + 7)
+    frames = [0, 2, 3, 5, 6, 7]
+    stamps = [0, 1, 0, 1, 0, 1]
+    views = []
+    for i in range(n_views):
+        f = frames[i % len(frames)]
+        yaw = rng.uniform(-0.05, 0.05)
+        fwd = np.array([np.cos(yaw), np.sin(yaw), 0.0])
+        right = np.array([np.sin(yaw), -np.cos(yaw), 0.0])
+        c2w = np.eye(4, dtype=np.float32)
+        c2w[:3, 0], c2w[:3, 1], c2w[:3, 2] = right, [0, 0, 1], -fwd
+        c2w[:3, 3] = [-55.0 + rng.uniform(-1, 1), rng.uniform(-1.5, 1.5), 1.6]
+        K = np.array([[focal, 0, width / 2], [0, focal, height / 2], [0, 0, 1]], np.float32)
+        views.append(dict(c2w=c2w, K=K, cam_idx=i % 3, image_idx=i,
+                          travel_index=f // 3, frame_idx=f, timestamp=float(stamps[i % 6])))
+    return views
+
+
+# ------------------------------------------------------------- measuring
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
+    """Median milliseconds of fn() over `reps` runs, CUDA events, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def blend_error(got, want):
+    """(max error, pixels above BLEND_TOL): colour channels and
+    transmittance absolute, each channel scaled by max(1, its largest
+    |value|) so the depth channel is held relatively."""
+    rgb_g, t_g = got
+    rgb_w, t_w = want
+    scale = torch.clamp(rgb_w.abs().amax(dim=(0, 2), keepdim=True), min=1.0)
+    err_rgb = ((rgb_g - rgb_w).abs() / scale).amax(dim=1)
+    err_t = (t_g - t_w).abs()
+    err = torch.maximum(err_rgb, err_t)
+    return float(err.max()), int((err > BLEND_TOL).sum())
+
+
+@contextlib.contextmanager
+def kernels_replaced(expand, blend_fn):
+    """`rasterize` calls `expand` and `blend_fn` in place of its two kernel
+    wrappers inside the with block."""
+    saved = (rasterize_mod.expand_fused, rasterize_mod.blend_forward)
+    rasterize_mod.expand_fused, rasterize_mod.blend_forward = expand, blend_fn
+    try:
+        yield
+    finally:
+        rasterize_mod.expand_fused, rasterize_mod.blend_forward = saved
+
+
+def plain_path():
+    """The whole path with the plain versions in place of the kernels."""
+    return kernels_replaced(expand_fused.expand_fused_plain, blend.blend_forward_plain)
+
+
+def capturing(args: dict):
+    """Records in `args` the arguments of the first call of each kernel
+    wrapper (the main path's shapes) and passes the calls through."""
+    def wrap(name, fn):
+        def call(*a, **kw):
+            args.setdefault(name, (a, kw))
+            return fn(*a, **kw)
+        return call
+    return kernels_replaced(wrap("expand_fused", rasterize_mod.expand_fused),
+                            wrap("blend_forward", rasterize_mod.blend_forward))
+
+
+@contextlib.contextmanager
+def views_recorded(outs: list):
+    """Appends to `outs` the images of every `render_view` that
+    `evaluate_scene` makes, passing them through unchanged."""
+    saved = pipeline_mod.render_view
+
+    def call(*a, **kw):
+        out = saved(*a, **kw)
+        outs.append({k: out[k] for k in (*VIEW_TOL, "depth")})
+        return out
+
+    pipeline_mod.render_view = call
+    try:
+        yield
+    finally:
+        pipeline_mod.render_view = saved
+
+
+def view_errors(got: dict, want: dict) -> dict:
+    """One kernel-path view against its plain render: max abs error of
+    each image in VIEW_TOL, max relative depth error where alpha > 1e-2,
+    and the view's own PSNR (rgb_appearance, capped at 100 dB)."""
+    err = {k: float((got[k] - want[k]).abs().max()) for k in VIEW_TOL}
+    covered = want["accumulation"] > 1e-2
+    d_w = want["depth"][covered]
+    err["depth_rel"] = float(((got["depth"][covered] - d_w).abs() / d_w.abs()).max())
+    err["covered"] = float(covered.float().mean())
+    err["psnr"] = float(masked_psnr(got["rgb_appearance"], want["rgb_appearance"]))
+    return err
+
+
+# ---------------------------------------------------------------- phases
+
+def phase_card():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"device {torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()})")
+    return card
+
+
+def phase_build():
+    t0 = time.perf_counter()
+    libs = cuda_build.build()
+    secs = time.perf_counter() - t0
+    log(f"# build: {', '.join(p.name for p in libs.values())} in {secs:.1f} s")
+    return secs
+
+
+def phase_goldens(dev):
+    """The kernel path against the independent gsplat-math goldens."""
+    worst = {}
+    for path in sorted((ROOT / "tests" / "goldens").glob("*.npz")):
+        g = np.load(path)
+        cfg = RasterizeConfig(
+            width=int(g["W"]), height=int(g["H"]), tile_size=int(g["tile_size"]),
+            rasterize_mode="antialiased" if bool(g["antialiased"]) else "classic",
+            render_mode="RGB+ED" if bool(g["with_depth"]) else "RGB",
+            max_intersections=1 << 16)
+        args = [torch.as_tensor(np.asarray(g[k], np.float32), device=dev)
+                for k in ("means", "quats", "scales", "opac", "colors", "viewmat", "K")]
+        render, alpha, _ = rasterize(*args, cfg)
+        e_r = float(np.abs(render.cpu().numpy() - g["render"]).max())
+        e_a = float(np.abs(alpha.cpu().numpy() - g["alpha"]).max())
+        require(e_r <= 2e-3 and e_a <= 1e-3,
+                f"golden {path.stem}: render err {e_r}, alpha err {e_a}")
+        worst[path.stem] = (e_r, e_a)
+    require(len(worst) == 4, f"expected 4 goldens, found {sorted(worst)}")
+    log(f"# goldens (kernel path): max |render err|, |alpha err| = {worst}")
+    return worst
+
+
+def phase_main(args, dev):
+    t0 = time.perf_counter()
+    p_sd, a_sd = make_scene_state(args.seed, args.n_bg, args.n_sky, args.n_inst)
+    params, aux = scene_from_state_dict(p_sd, a_sd, device=dev)
+    n_total = sum(int(a) for a in (
+        aux.background.num_alive, aux.skybox.num_alive, aux.instances.num_alive.sum()))
+    cfg = configs.mtgs_config(args.width, args.height)
+    views = make_views(args.seed, args.views, args.width, args.height, args.focal)
+    torch.cuda.synchronize()
+    log(f"# scene: {n_total} live gaussians ({args.n_bg} background, {args.n_sky} skybox, "
+        f"{args.n_inst} instance), {len(views)} views at {cfg.width}x{cfg.height}, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+
+    # ground truth: the plain path's render of each view, on the card
+    batches, plain_outs, plain_ms, n_isect = [], [], [], []
+    for v in views:
+        t1 = time.perf_counter()
+        b0 = Batch(image=np.zeros((1, 1, 3), np.float32),
+                   mask=np.ones((1, 1, 1), np.float32), **v)
+        with plain_path():
+            out = render_view(params, aux, cfg, b0, 10**9, device=dev)
+        torch.cuda.synchronize()
+        plain_ms.append(1e3 * (time.perf_counter() - t1))
+        n_isect.append(int(out["n_intersections"]))
+        plain_outs.append({k: out[k] for k in (*VIEW_TOL, "depth")})
+        alpha = out["accumulation"]
+        lidar = torch.where(alpha > 0.5, out["depth"], torch.zeros_like(out["depth"]))
+        batches.append(Batch(image=out["rgb_appearance"], mask=torch.ones_like(alpha),
+                             lidar_depth=lidar, **v))
+    require(max(n_isect) <= cfg.max_intersections,
+            f"n_intersections {n_isect} exceed max_intersections "
+            f"{cfg.max_intersections}: the render would be truncated")
+
+    # the main path: kernel launches counted from here ...
+    kernel_outs = []
+    with views_recorded(kernel_outs):
+        cuda_build.reset_launches()
+        t1 = time.perf_counter()
+        result = evaluate_scene(params, aux, cfg, batches, eval_cfg=EvalConfig(),
+                                device=dev)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t1
+        launches = dict(cuda_build.LAUNCHES)
+    # ... to here
+    for k, n in launches.items():
+        require(n >= len(views), f"kernel {k} launched {n} times over {len(views)} views")
+    require(result["num_images"] == len(views) == len(kernel_outs)
+            and np.isfinite(result["ssim"]), f"bad eval result {result}")
+
+    # every view of that run against its own plain render
+    per_view = [view_errors(g, w) for g, w in zip(kernel_outs, plain_outs)]
+    for i, e in enumerate(per_view):
+        bad = [k for k, tol in VIEW_TOL.items() if not e[k] <= tol]
+        bad += ["depth_rel"] * (not e["depth_rel"] <= DEPTH_REL_TOL)
+        bad += ["psnr"] * (not e["psnr"] >= PSNR_MIN)
+        require(not bad, f"view {i}: kernel path vs plain path out of tolerance "
+                         f"in {bad}: {e}")
+    rmse = {k: v for k, v in result.items() if k.endswith("depth_RMSE")}
+    require(all(v <= DEPTH_RMSE_MAX for v in rmse.values()),
+            f"depth RMSE above {DEPTH_RMSE_MAX} m: {rmse}")
+    worst = {k: max(e[k] for e in per_view) for k in (*VIEW_TOL, "depth_rel")}
+    worst["psnr_min"] = min(e["psnr"] for e in per_view)
+
+    # steady-state time per view on the kernel path
+    view_ms = []
+    for b in batches:
+        for _ in range(2):
+            t1 = time.perf_counter()
+            out = render_view(params, aux, cfg, b, 10**9, device=dev)
+            torch.cuda.synchronize()
+            view_ms.append(1e3 * (time.perf_counter() - t1))
+        require(int(out["n_intersections"]) <= cfg.max_intersections, "truncated render")
+        require(out["rgb"].shape == (cfg.height, cfg.width, 3), f"rgb {out['rgb'].shape}")
+        require(bool(torch.isfinite(out["rgb"]).all() & torch.isfinite(out["depth"]).all()),
+                "non-finite render")
+    main = dict(
+        n_gaussians=n_total, views=len(views), n_intersections=n_isect,
+        max_intersections=cfg.max_intersections, launches=launches,
+        eval_seconds=eval_s, eval_fps=result["fps"],
+        ms_per_view_median=float(np.median(view_ms)),
+        plain_ms_per_view_median=float(np.median(plain_ms[1:])),
+        psnr=result["psnr"], ssim=result["ssim"], cc_psnr=result["cc_psnr"],
+        depth_RMSE=result.get("depth_RMSE"), per_view=per_view, worst_view=worst,
+        result=result)
+    log(f"# main path: evaluate_scene over {len(views)} views in {eval_s:.2f} s; "
+        f"launches {launches}; n_intersections {n_isect} (max {cfg.max_intersections})")
+    log(f"# main path, worst view against its plain render: {worst}")
+    log(f"# main path: psnr {result['psnr']:.2f} dB, ssim {result['ssim']:.6f}, "
+        f"cc_psnr {result['cc_psnr']:.2f} dB vs the plain path; "
+        f"median {main['ms_per_view_median']:.2f} ms/view (kernel path), "
+        f"{main['plain_ms_per_view_median']:.1f} ms/view (plain path)")
+    return params, aux, cfg, batches[0], main
+
+
+def phase_kernels(params, aux, cfg, batch, launches, dev):
+    captured = {}
+    with capturing(captured):
+        render_view(params, aux, cfg, batch, 10**9, device=dev)
+    kernels = []
+
+    # expand_fused: exact integer math and copies
+    (table, offsets, packed, total, I), kw = captured["expand_fused"]
+    got = expand_fused.expand_fused(table, offsets, packed, total, I, **kw)
+    want = expand_fused.expand_fused_plain(table, offsets, packed, total, I, **kw)
+    torch.cuda.synchronize()
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            "expand_fused kernel differs from its plain version")
+    err = float((got[2] - want[2]).abs().max())
+    nw, n = table.shape
+    n_live = int((torch.diff(offsets, append=total) > 0).sum())
+    e_bytes = 4 * (nw * n_live + 2 * n + 1) + 4 * I * (2 + got[2].shape[0])
+    e_bound = 1e3 * e_bytes / PEAK_BYTES_PER_S
+    kernels.append(dict(
+        name="expand_fused", route="cuda", source="mtgs_torch/csrc/expand_fused.cu",
+        replaces="mtgs_tpu/raster/expand_fused.py:205",
+        tpu_kernel="mtgs_tpu/raster/expand_fused.py::expand_fused",
+        launches=launches["expand_fused"], max_abs_err=err, tol=0.0,
+        ms=cuda_ms(lambda: expand_fused.expand_fused(table, offsets, packed, total, I, **kw)),
+        plain_ms=cuda_ms(lambda: expand_fused.expand_fused_plain(
+            table, offsets, packed, total, I, **kw)),
+        bound_ms=e_bound, bound_by="bytes", library_ms=None,
+        library_note="no single PyTorch call computes it (searchsorted + gathers is "
+                     "the plain version)",
+        shapes=dict(table=list(table.shape), I=I, total=int(total), nw=nw),
+        bytes=e_bytes))
+
+    # blend_forward: the front-to-back blend
+    a, kw = captured["blend_forward"]
+    got = blend.blend_forward(*a, **kw)
+    stats = {}
+    want = blend.blend_forward_plain(*a, **kw, stats=stats)
+    torch.cuda.synchronize()
+    err, flips = blend_error(got, want)
+    n_pix = want[1].numel()
+    require(flips <= max(2, n_pix // 1000) and err <= BLEND_FLIP_TOL,
+            f"blend_forward: max err {err}, {flips} pixels above {BLEND_TOL} "
+            f"(allowed {max(2, n_pix // 1000)} up to {BLEND_FLIP_TOL})")
+    slab_t, offs, heads, counts, nchunks = a
+    c_total, T = kw["c_total"], offs.shape[0]
+    n_pairs = int(counts.sum())
+    # the slab columns the early exit must read: per tile, those up to the
+    # furthest intersection any of its pixels evaluates
+    b_bytes = 4 * ((NUM_GEOM + c_total) * stats["pairs_read"] + 3 * T
+                   + (c_total + 1) * n_pix)
+    # per evaluated (pixel, intersection): sigma 11, exp and scale 3; per
+    # composited one: clamp, log1p, sum, exp, weight, c_total FMAs, log sum
+    b_ops = 14 * stats["pair_evals"] + (6 + 2 * c_total) * stats["pair_blends"]
+    b_bound_bytes = 1e3 * b_bytes / PEAK_BYTES_PER_S
+    b_bound_ops = 1e3 * b_ops / PEAK_F32_PER_S
+    kernels.append(dict(
+        name="blend_forward", route="cuda", source="mtgs_torch/csrc/blend_forward.cu",
+        replaces="mtgs_tpu/raster/blend_pallas.py:185",
+        tpu_kernel="mtgs_tpu/raster/blend_pallas.py::blend_forward_pallas",
+        launches=launches["blend_forward"], max_abs_err=err,
+        tol=dict(abs=BLEND_TOL, flip=BLEND_FLIP_TOL, flip_pixels_max=max(2, n_pix // 1000)),
+        flip_pixels=flips,
+        ms=cuda_ms(lambda: blend.blend_forward(*a, **kw)),
+        plain_ms=cuda_ms(lambda: blend.blend_forward_plain(*a, **kw), reps=5, warmup=1),
+        bound_ms=max(b_bound_bytes, b_bound_ops),
+        bound_by="operations" if b_bound_ops >= b_bound_bytes else "bytes",
+        library_ms=None,
+        library_note="no single PyTorch call computes a depth-ordered alpha blend",
+        shapes=dict(slab=list(slab_t.shape), tiles=T, tile_size=kw["tile_size"],
+                    c_total=c_total, pairs=n_pairs),
+        pairs_read=stats["pairs_read"], pair_evals=stats["pair_evals"],
+        pair_blends=stats["pair_blends"], bytes=b_bytes, ops=b_ops,
+        bound_bytes_ms=b_bound_bytes, bound_ops_ms=b_bound_ops))
+    for k in kernels:
+        k["kernel_ms"] = k["ms"]
+        log(f"# kernel {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, "
+            f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}), max err {k['max_abs_err']:.3g}")
+    return kernels
+
+
+def phase_profile(params, aux, cfg, batch, dev, top: int = 25):
+    """torch.profiler over one kernel-path view: device time by kernel
+    name, and the device's busy share of the view's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    render_view(params, aux, cfg, batch, 10**9, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        render_view(params, aux, cfg, batch, 10**9, device=dev)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    log(f"# profile: one view {wall_ms:.2f} ms wall (profiled), device busy "
+        f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), {len(kernels)} kernel launches")
+    for name, (ms, n) in rows[:top]:
+        log(f"#   {ms:8.3f} ms  x{n:<4d} {name[:110]}")
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, launches=len(kernels),
+                by_kernel=[dict(name=k, ms=ms, count=n) for k, (ms, n) in rows])
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--views", type=int, default=6)
+    ap.add_argument("--width", type=int, default=960)
+    ap.add_argument("--height", type=int, default=540)
+    ap.add_argument("--focal", type=float, default=800.0)
+    ap.add_argument("--n-bg", type=int, default=900_000)
+    ap.add_argument("--n-sky", type=int, default=100_000)
+    ap.add_argument("--n-inst", type=int, default=4096)
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace one view with torch.profiler (kernel time by name)")
+    ap.add_argument("--out", type=Path, default=None,
+                    help="directory to write the full results to (chip_smoke.json)")
+    args = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    card = phase_card()
+    build_s = phase_build()
+    goldens = phase_goldens(dev)
+    params, aux, cfg, batch, main_res = phase_main(args, dev)
+    kernels = phase_kernels(params, aux, cfg, batch, main_res["launches"], dev)
+    prof = phase_profile(params, aux, cfg, batch, dev) if args.profile else None
+
+    if args.out is not None:
+        args.out.mkdir(parents=True, exist_ok=True)
+        summary = dict(card=card, build_seconds=build_s, goldens=goldens, main=main_res,
+                       kernels=kernels, profile=prof, seconds=time.perf_counter() - t_start)
+        (args.out / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,41 @@
+"""mtgs_torch — the PyTorch/CUDA port of mtgs_tpu for NVIDIA Hopper.
+
+A second package beside `mtgs_tpu/`, mirroring its layout so every module
+has an obvious counterpart:
+
+    core/      quaternions, spherical harmonics, view matrices
+    raster/    projection, binning, the fused forward rasterizer and its
+               hand-written CUDA kernels (csrc/) with plain twins
+    models/    scene-graph nodes, instances, appearance, state conversion
+    train/     render-path pieces of the trainer (render_view, losses)
+    eval/      metric suite + the per-traversal eval pipeline
+
+This package imports torch, numpy and scipy only — never jax or mtgs_tpu.
+Entry points take an explicit `device` that defaults to "cuda" and raise
+when no card is present; they never fall back to the CPU on their own.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.1.0"
+
+# Full-f32 matmuls and convolutions. TF32 keeps ~3 decimal digits — the
+# Hopper analogue of the one-pass bf16 TPU matmul that corrupted SSIM and
+# sent a training run NaN (mtgs_tpu/__init__.py pins "highest" for the
+# same reason).
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The torch.device an entry point runs on; raises if it is a CUDA
+    device and no card is present (there is no silent CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "mtgs_torch: device 'cuda' requested but torch.cuda.is_available() "
+            "is False; pass device='cpu' explicitly to run on the CPU"
+        )
+    return dev

@@ -1,0 +1,85 @@
+"""Quaternion math (wxyz convention), batched over leading dims.
+
+Port of `mtgs_tpu/core/quat.py`: the subset the render path uses.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Normalize along the last axis; eps-safe at exact-zero (padded) rows."""
+    norm = torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True) + eps * eps)
+    return q / norm
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """[..., 4] (normalized internally) -> [..., 3, 3] rotation matrices."""
+    q = quat_normalize(q)
+    w, x, y, z = q.unbind(-1)
+    r00 = 1.0 - 2.0 * (y * y + z * z)
+    r01 = 2.0 * (x * y - w * z)
+    r02 = 2.0 * (x * z + w * y)
+    r10 = 2.0 * (x * y + w * z)
+    r11 = 1.0 - 2.0 * (x * x + z * z)
+    r12 = 2.0 * (y * z - w * x)
+    r20 = 2.0 * (x * z - w * y)
+    r21 = 2.0 * (y * z + w * x)
+    r22 = 1.0 - 2.0 * (x * x + y * y)
+    rows = [
+        torch.stack([r00, r01, r02], dim=-1),
+        torch.stack([r10, r11, r12], dim=-1),
+        torch.stack([r20, r21, r22], dim=-1),
+    ]
+    return torch.stack(rows, dim=-2)
+
+
+def quat_mult(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product q1*q2. [..., 4] x [..., 4] -> [..., 4]."""
+    w1, x1, y1, z1 = q1.unbind(-1)
+    w2, x2, y2, z2 = q2.unbind(-1)
+    return torch.stack(
+        [
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        ],
+        dim=-1,
+    )
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a, b = torch.broadcast_tensors(a, b)
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors v by quaternions q. [..., 4], [..., 3] -> [..., 3]."""
+    q = quat_normalize(q)
+    w = q[..., :1]
+    u = q[..., 1:]
+    uv = _cross(u, v)
+    return v + 2.0 * (w * uv + _cross(u, uv))
+
+
+def slerp(q0: torch.Tensor, q1: torch.Tensor, t: torch.Tensor,
+          eps: float = 1e-7) -> torch.Tensor:
+    """Spherical linear interpolation between unit quaternions, with the
+    antipodal sign flip and a lerp fallback for nearly-parallel inputs."""
+    q0 = quat_normalize(q0)
+    q1 = quat_normalize(q1)
+    if t.ndim == q0.ndim - 1:
+        t = t[..., None]
+    dot = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    q1 = torch.where(dot < 0, -q1, q1)
+    dot = torch.abs(dot)
+    dot_c = torch.clamp(dot, -1.0, 1.0)
+    theta = torch.arccos(torch.clamp(dot_c, 0.0, 1.0 - eps))
+    sin_theta = torch.sin(theta)
+    near = dot > 1.0 - eps
+    w0 = torch.where(near, 1.0 - t,
+                     torch.sin((1.0 - t) * theta) / torch.clamp(sin_theta, min=eps))
+    w1 = torch.where(near, t, torch.sin(t * theta) / torch.clamp(sin_theta, min=eps))
+    return quat_normalize(w0 * q0 + w1 * q1)

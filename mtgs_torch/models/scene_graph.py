@@ -1,0 +1,232 @@
+"""The multi-traversal gaussian scene graph (render path).
+
+Port of `mtgs_tpu/models/scene_graph.py`: every node is a padded block
+and composition is a concatenation
+
+    [ background | skybox | instance 0 | instance 1 | ... ]
+
+with frame/traversal gating folded into opacity (an absent instance has
+opacity 0 and is dropped before binning). Rigid instances are stacked:
+their node tensors carry a leading instance axis.
+
+Deformable nodes and WildGaussians appearance are not ported yet; a scene
+that carries them raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from mtgs_torch.core.quat import quat_mult, quat_normalize, quat_rotate, slerp
+from mtgs_torch.core.sh import sh_basis
+from mtgs_torch.models.gaussians import (
+    GaussianNodeParams, NodeAux, get_opacities, get_quats, get_scales,
+)
+
+
+@dataclass
+class InstanceParams:
+    """Stacked rigid instances: node tensors carry a leading [I] axis."""
+
+    node: GaussianNodeParams            # [I, cap, ...]
+    quats: torch.Tensor                 # [I, F, 4] per-frame pose rotations
+    trans: torch.Tensor                 # [I, F, 3] per-frame pose translations
+
+
+@dataclass
+class InstanceAux:
+    alive: torch.Tensor                 # [I, cap]
+    num_alive: torch.Tensor             # [I]
+    present: torch.Tensor               # [I, F] float 0/1
+    is_static: torch.Tensor             # [I] float 0/1 (single-pose mode)
+    frame_timestamps: torch.Tensor      # [F]
+    travel_of_frame: torch.Tensor       # [F] int traversal id per frame row
+    sizes: torch.Tensor                 # [I, 3]
+
+
+@dataclass
+class SceneParams:
+    background: GaussianNodeParams
+    skybox: Optional[GaussianNodeParams]
+    instances: Optional[InstanceParams]
+    appearance: torch.Tensor            # [num_cams, 3, 4] exposure affine
+    camera_opt: torch.Tensor            # [num_images, 6] SO3xR3 deltas
+    deformables: Optional[object] = None   # not ported: must be None
+    wild: Optional[object] = None          # not ported: must be None
+
+
+@dataclass
+class SceneAux:
+    background: NodeAux
+    skybox: Optional[NodeAux]
+    instances: Optional[InstanceAux]
+    deformables: Optional[object] = None
+
+
+@dataclass(frozen=True)
+class SceneConfig:
+    sh_degree: int = 3
+    travel_mode: str = "index"          # "index" | "mean" | "null"
+    interp_poses: bool = False
+
+
+@dataclass
+class ViewInputs:
+    """Per-render inputs (0-d tensors or Python numbers)."""
+
+    travel_index: int
+    frame_idx: int
+    timestamp: torch.Tensor             # [] float
+    cam_pos: torch.Tensor               # [3]
+    sh_mask: torch.Tensor               # [16] 0/1 degree-ramp mask
+    image_idx: int = 0
+
+
+def _multicolor_features(p: GaussianNodeParams, travel_index, mode: str):
+    """Per-traversal (features_dc, features_rest), with the eval fallbacks
+    for unseen traversals ("mean", "null")."""
+    if not p.multicolor:
+        return p.features_dc, p.features_rest
+    if mode == "index":
+        dc = p.features_dc + p.features_adapters[:, travel_index]
+        rest = p.features_rest[:, travel_index] if p.multi_feature_rest else p.features_rest
+    elif mode == "mean":
+        dc = p.features_dc + p.features_adapters.mean(dim=1)
+        rest = p.features_rest.mean(dim=1) if p.multi_feature_rest else p.features_rest
+    elif mode == "null":
+        dc = p.features_dc
+        # only a per-traversal rest is nulled; a shared rest stays
+        rest = (torch.zeros_like(p.features_rest[:, 0]) if p.multi_feature_rest
+                else p.features_rest)
+    else:
+        raise ValueError(f"unknown travel_mode {mode}")
+    return dc, rest
+
+
+def _eval_colors(means, features_dc, features_rest, cam_pos, sh_mask):
+    """Masked-degree SH colour evaluation, clamped to [0, 1]."""
+    coeffs = torch.cat([features_dc[..., None, :], features_rest], dim=-2)
+    dirs = means - cam_pos
+    dirs = dirs / torch.sqrt(torch.sum(dirs * dirs, -1, keepdim=True) + 1e-24)
+    basis = sh_basis(3, dirs) * sh_mask
+    k = coeffs.shape[-2]
+    rgb = (basis[..., :k, None] * coeffs).sum(-2) + 0.5
+    return torch.clamp(rgb, 0.0, 1.0)
+
+
+def _instance_pose(inst_quats, inst_trans, aux: InstanceAux, view: ViewInputs,
+                   interp: bool):
+    """Per-instance pose for this view -> (quat [I,4], trans [I,3], gate [I]):
+    gathered at frame_idx, or slerped between the frames of this view's
+    traversal that bracket its timestamp; static instances keep the pose
+    of their first present frame."""
+    if interp:
+        ts = aux.frame_timestamps
+        same_travel = aux.travel_of_frame == view.travel_index
+        diffs = view.timestamp - ts
+        big = torch.full_like(diffs, 1e9)
+        prev_f = torch.argmin(torch.where(same_travel & (diffs >= 0), diffs, big))
+        next_f = torch.argmin(torch.where(same_travel & (diffs <= 0), -diffs, big))
+        denom = ts[next_f] - ts[prev_f]
+        small = torch.abs(denom) < 1e-9
+        t = torch.where(small, torch.zeros_like(denom),
+                        (view.timestamp - ts[prev_f])
+                        / torch.where(small, torch.ones_like(denom), denom))
+        q0 = inst_quats[:, prev_f]
+        q1 = inst_quats[:, next_f]
+        q = slerp(q0, q1, t.expand(q0.shape[:-1]))
+        tr = inst_trans[:, prev_f] * (1 - t) + inst_trans[:, next_f] * t
+        gate = aux.present[:, prev_f] * aux.present[:, next_f]
+    else:
+        q = inst_quats[:, view.frame_idx]
+        tr = inst_trans[:, view.frame_idx]
+        gate = aux.present[:, view.frame_idx]
+    static = aux.is_static[:, None]
+    anchor = torch.argmax(aux.present, dim=1)  # first present row
+    rows = torch.arange(inst_quats.shape[0], device=inst_quats.device)
+    q = static * inst_quats[rows, anchor] + (1 - static) * q
+    tr = static * inst_trans[rows, anchor] + (1 - static) * tr
+    return quat_normalize(q), tr, gate
+
+
+def _collect_instances(node: GaussianNodeParams, alive, pose_q, pose_t, gate,
+                       view: ViewInputs):
+    """World-space gaussians of stacked instances, flattened to [I*cap, ...]."""
+    I, cap = node.means.shape[:2]
+    quats_l = quat_normalize(node.quats)
+    scales_l = torch.exp(node.scales)
+    means_w = quat_rotate(pose_q[:, None, :], node.means) + pose_t[:, None, :]
+    quats_w = quat_mult(pose_q[:, None, :], quats_l)
+    opac = torch.sigmoid(node.opacities[..., 0]) * alive * gate[:, None]
+
+    dc, rest = node.features_dc, node.features_rest
+    if node.fourier:
+        from mtgs_torch.models.fourier import fourier_features_dc
+
+        dc = fourier_features_dc(
+            node.fourier_dc.reshape(I * cap, *node.fourier_dc.shape[2:]),
+            view.timestamp,
+        ).reshape(I, cap, 3)
+    colors = _eval_colors(
+        means_w.reshape(I * cap, 3), dc.reshape(I * cap, 3),
+        rest.reshape(I * cap, *rest.shape[2:]), view.cam_pos, view.sh_mask,
+    )
+    return (means_w.reshape(I * cap, 3), quats_w.reshape(I * cap, 4),
+            scales_l.reshape(I * cap, 3), opac.reshape(I * cap), colors)
+
+
+def collect_gaussians(params: SceneParams, aux: SceneAux, cfg: SceneConfig,
+                      view: ViewInputs) -> Dict[str, torch.Tensor]:
+    """Concatenate all nodes' world-space gaussians for one view: means
+    [N,3], quats [N,4], scales [N,3], opacities [N], colors [N,3]."""
+    if params.deformables is not None or params.wild is not None:
+        raise NotImplementedError(
+            "deformable nodes and WildGaussians appearance are not ported yet")
+    outs = []
+    for name in ("background", "skybox"):
+        p = getattr(params, name)
+        if p is None:
+            continue
+        dc, rest = _multicolor_features(p, view.travel_index, cfg.travel_mode)
+        outs.append((
+            p.means, get_quats(p), get_scales(p), get_opacities(p, getattr(aux, name)),
+            _eval_colors(p.means, dc, rest, view.cam_pos, view.sh_mask),
+        ))
+    if params.instances is not None:
+        q, t, gate = _instance_pose(params.instances.quats, params.instances.trans,
+                                    aux.instances, view, cfg.interp_poses)
+        outs.append(_collect_instances(params.instances.node, aux.instances.alive,
+                                       q, t, gate, view))
+    means, quats, scales, opac, colors = (
+        torch.cat([o[i] for o in outs], dim=0) for i in range(5))
+    return dict(means=means, quats=quats, scales=scales, opacities=opac, colors=colors)
+
+
+def init_scene(
+    background: Tuple[GaussianNodeParams, NodeAux],
+    skybox: Optional[Tuple[GaussianNodeParams, NodeAux]] = None,
+    instances: Optional[Tuple[InstanceParams, InstanceAux]] = None,
+    *,
+    num_cameras: int = 1,
+    num_images: int = 1,
+    device="cpu",
+) -> Tuple[SceneParams, SceneAux]:
+    """Assemble SceneParams/SceneAux from per-node inits."""
+    from mtgs_torch.models.appearance import init_exposure
+
+    params = SceneParams(
+        background=background[0],
+        skybox=None if skybox is None else skybox[0],
+        instances=None if instances is None else instances[0],
+        appearance=init_exposure(num_cameras, device=device),
+        camera_opt=torch.zeros((num_images, 6), dtype=torch.float32, device=device),
+    )
+    auxs = SceneAux(
+        background=background[1],
+        skybox=None if skybox is None else skybox[1],
+        instances=None if instances is None else instances[1],
+    )
+    return params, auxs

@@ -1,0 +1,190 @@
+"""Forward rasterization API (the fused branch), forward only.
+
+Port of `mtgs_tpu/raster/rasterize.py::rasterize` on its fused branch
+(:673-702, :791-869): projection -> tile spans -> depth sort -> pair
+expansion (`expand_fused`) -> pair sort by (tile, depth) -> per-tile
+ranges -> forward blend (`blend_forward`) -> image assembly and ED
+normalisation. The JAX package moves attributes through its sorts as
+payload operands because random gathers are slow on a TPU; here the
+sorts are `torch.sort` and the permutations are gathers.
+
+Training (the backward kernels) is a later slice: `rasterize` runs under
+`torch.no_grad()` and raises NotImplementedError if asked for gradients.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from mtgs_torch.raster.binning import padded_capacity, tile_spans
+from mtgs_torch.raster.blend import blend_forward
+from mtgs_torch.raster.chunk_math import CHUNK, MAX_CH
+from mtgs_torch.raster.expand_fused import expand_fused, fused_fits, slot_bits
+from mtgs_torch.raster.projection import project_gaussians
+
+
+@dataclass(frozen=True)
+class RasterizeConfig:
+    """Static rasterization settings."""
+
+    width: int
+    height: int
+    tile_size: int = 32
+    near_plane: float = 0.01
+    far_plane: float = 1e10
+    rasterize_mode: str = "classic"      # "classic" | "antialiased"
+    render_mode: str = "RGB"             # "RGB" | "RGB+D" | "RGB+ED" | "D" | "ED"
+    max_intersections: int = 1 << 20
+
+    @property
+    def tiles_x(self) -> int:
+        return -(-self.width // self.tile_size)
+
+    @property
+    def tiles_y(self) -> int:
+        return -(-self.height // self.tile_size)
+
+    @property
+    def with_depth(self) -> bool:
+        return "D" in self.render_mode
+
+
+def _round8(x: int) -> int:
+    return ((x + 7) // 8) * 8
+
+
+def _gather_fused_fwd(config: RasterizeConfig, table, packed_in, counts_in, depths):
+    """Depth sort, pair expansion and pair sort: returns (slab_t [W8, cap]
+    tile-sorted, key_s [I] sorted keys, total)."""
+    n, nw = table.shape
+    I = config.max_intersections
+    num_tiles = config.tiles_x * config.tiles_y
+
+    # stable sort == the JAX (depth_key, iota) two-key sort; zero-pair
+    # gaussians go last so every sorted index < n_live owns >= 1 pair
+    depth_key = torch.where(counts_in > 0, depths, torch.full_like(depths, float("inf")))
+    perm = torch.sort(depth_key, stable=True).indices
+    packed = packed_in[perm]
+    counts = counts_in[perm]
+    csum = torch.cumsum(counts, dim=0, dtype=torch.int64)
+    offsets = (csum - counts).to(torch.int32)
+    total = csum[-1:].to(torch.int32)
+    table_am = table[perm].T.contiguous()  # [nw, n] depth-sorted
+
+    key, _, attrs = expand_fused(table_am, offsets, packed, total, I,
+                           tiles_x=config.tiles_x, num_tiles=num_tiles)
+    # keys are unique (the slot is in the low bits): any sort is exact
+    key_s, order = torch.sort(key)
+    slab_t = torch.zeros((_round8(nw), padded_capacity(I)), dtype=torch.float32,
+                         device=table.device)
+    slab_t[:, :I] = attrs[:, order]
+    return slab_t, key_s, total
+
+
+def _tile_ranges(key_s, num_tiles: int, max_intersections: int):
+    """Per-tile (offsets, heads, counts, nchunks) of the tile-sorted keys,
+    in the JAX package's 128-aligned window convention."""
+    q = torch.arange(num_tiles + 1, dtype=torch.int32, device=key_s.device)
+    q = q << slot_bits(max_intersections)
+    bounds = torch.searchsorted(key_s, q, out_int32=True)
+    starts, tcounts = bounds[:-1], bounds[1:] - bounds[:-1]
+    tile_offsets = (starts // CHUNK) * CHUNK
+    tile_heads = starts - tile_offsets
+    tile_nchunks = torch.where(
+        tcounts > 0, (tile_heads + tcounts + CHUNK - 1) // CHUNK,
+        torch.zeros_like(tcounts))
+    return tile_offsets, tile_heads, tcounts, tile_nchunks.to(torch.int32)
+
+
+def _check_no_grad(*tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "mtgs_torch.rasterize is forward-only: gradients (the backward "
+            "blend and segment-sum kernels) come with the training slice")
+
+
+def rasterize(means, quats, scales, opacities, colors, viewmat, K,
+              config: RasterizeConfig) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """Render one view of a set of 3D gaussians (forward only).
+
+    Args: means [N, 3], quats [N, 4] wxyz, scales [N, 3] linear,
+    opacities [N] in [0, 1], colors [N, C] (C <= 7, SH already evaluated),
+    viewmat [4, 4] cv world-to-camera, K [3, 3]; all on one device.
+
+    Returns render [H, W, C(+1 with depth)] (ED mode's last channel is
+    alpha-normalised expected depth), alpha [H, W, 1], and info with
+    means2d, radii, depths, compensations and n_intersections (a 1-element
+    int32 tensor; above config.max_intersections the farthest pairs were
+    dropped).
+    """
+    _check_no_grad(means, quats, scales, opacities, colors, viewmat, K)
+    with torch.no_grad():
+        return _rasterize(means, quats, scales, opacities, colors, viewmat, K, config)
+
+
+def _rasterize(means, quats, scales, opacities, colors, viewmat, K, config):
+    N = means.shape[0]
+    C = colors.shape[-1]
+    if C + int(config.with_depth) > MAX_CH:
+        raise ValueError(f"too many channels: {C} (+depth) > {MAX_CH}")
+    num_tiles = config.tiles_x * config.tiles_y
+    if not fused_fits(config.max_intersections, num_tiles, N):
+        raise ValueError(
+            f"max_intersections={config.max_intersections} does not fit the fused "
+            "path (a multiple of 256 below 2^24 is needed); the classic path is "
+            "not ported yet")
+
+    proj = project_gaussians(
+        means, quats, scales, viewmat, K, config.width, config.height,
+        near_plane=config.near_plane, far_plane=config.far_plane,
+        antialiased=(config.rasterize_mode == "antialiased"),
+    )
+    op_eff = opacities * proj.compensations
+    cols = colors
+    if config.with_depth:
+        cols = torch.cat([cols, proj.depths[:, None]], dim=-1)
+    c_total = cols.shape[-1]
+
+    # zero-opacity rows (gated-out nodes, padded capacity) never contribute
+    live = proj.valid & (op_eff > 0)
+    table = torch.cat([proj.means2d, proj.conics, op_eff[:, None], cols], dim=-1)
+    packed_in, counts_in = tile_spans(
+        proj.means2d, proj.radii, live, width=config.width, height=config.height,
+        tile_size=config.tile_size, conics=proj.conics, op_eff=op_eff,
+    )
+    slab_t, key_s, n_isect = _gather_fused_fwd(
+        config, table, packed_in, counts_in, proj.depths)
+    ranges = _tile_ranges(key_s, num_tiles, config.max_intersections)
+    rgb_tiles, t_final = blend_forward(
+        slab_t, *ranges, tile_size=config.tile_size, tiles_x=config.tiles_x,
+        c_total=c_total, tile_base=0)
+
+    render, alpha = _assemble_image(rgb_tiles, t_final, config, c_total)
+    info = dict(
+        means2d=proj.means2d, radii=proj.radii, depths=proj.depths,
+        n_intersections=n_isect, compensations=proj.compensations,
+    )
+    return render, alpha, info
+
+
+def _assemble_image(rgb_tiles, t_final, config: RasterizeConfig, c_total: int):
+    """Tile-major blend outputs -> (render [H, W, c], alpha [H, W, 1])."""
+    ts = config.tile_size
+    ty, tx = config.tiles_y, config.tiles_x
+    img = rgb_tiles.reshape(ty, tx, c_total, ts, ts).permute(0, 3, 1, 4, 2)
+    img = img.reshape(ty * ts, tx * ts, c_total)[: config.height, : config.width]
+    t_img = t_final.reshape(ty, tx, ts, ts).permute(0, 2, 1, 3)
+    t_img = t_img.reshape(ty * ts, tx * ts)[: config.height, : config.width]
+    alpha = (1.0 - t_img)[..., None]
+    return _finalize(img, alpha, config, c_total), alpha
+
+
+def _finalize(accum, alpha, config: RasterizeConfig, c_total: int):
+    """ED normalisation (gsplat: last channel / clamp(alpha, 1e-10))."""
+    if config.render_mode.endswith("ED"):
+        depth = accum[..., -1:] / torch.clamp(alpha, min=1e-10)
+        return torch.cat([accum[..., : c_total - 1], depth], dim=-1)
+    return accum[..., :c_total]

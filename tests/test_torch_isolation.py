@@ -1,0 +1,101 @@
+"""mtgs_torch stands alone: it imports neither JAX, flax nor mtgs_tpu, and
+its entry points never fall back to the CPU on their own."""
+
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import mtgs_torch
+from mtgs_torch import configs
+from mtgs_torch.eval import pipeline
+from mtgs_torch.models.gaussians import init_node_from_points
+from mtgs_torch.models.scene_graph import init_scene
+from mtgs_torch.train import trainer
+
+PKG = Path(mtgs_torch.__file__).parent
+FORBIDDEN = ("jax", "flax", "mtgs_tpu")
+
+
+def all_modules():
+    return sorted(m.name for m in pkgutil.walk_packages([str(PKG)], "mtgs_torch."))
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = all_modules()
+    assert "mtgs_torch.eval.pipeline" in mods and "mtgs_torch.raster.blend" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    root = PKG.parent
+    r = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|mtgs_tpu)\b|import_module\(\s*['\"]"
+                         r"(jax|flax|mtgs_tpu)")
+    files = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
+    assert len(files) > 20
+    for p in files:
+        for i, line in enumerate(p.read_text().splitlines(), 1):
+            assert not pattern.search(line), f"{p.relative_to(PKG.parent)}:{i}: {line}"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _tiny_scene():
+    rng = np.random.default_rng(0)
+    xyz = np.stack([rng.uniform(-1, 1, 20), rng.uniform(-1, 1, 20),
+                    rng.uniform(-6, -3, 20)], -1).astype(np.float32)
+    bg = init_node_from_points(xyz, rng.uniform(0, 255, (20, 3)), capacity=32)
+    return init_scene(bg)
+
+
+def _batch():
+    K = np.array([[20.0, 0, 16], [0, 20.0, 8], [0, 0, 1]], np.float32)
+    return trainer.Batch(
+        image=np.zeros((16, 32, 3), np.float32), mask=np.ones((16, 32, 1), np.float32),
+        c2w=np.eye(4, dtype=np.float32), K=K, cam_idx=0, image_idx=0, travel_index=0,
+        frame_idx=0, timestamp=0.0)
+
+
+def test_entry_points_raise_without_a_card(no_card):
+    params, aux = _tiny_scene()
+    cfg = configs.mtgs_config(32, 16).replace(max_intersections=1 << 12)
+    with pytest.raises(RuntimeError, match="cuda"):
+        trainer.render_view(params, aux, cfg, _batch(), 0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pipeline.evaluate_scene(params, aux, cfg, [_batch()])
+    with pytest.raises(RuntimeError, match="cuda"):
+        mtgs_torch.resolve_device()
+    # asked for explicitly, the CPU runs
+    out = trainer.render_view(params, aux, cfg, _batch(), 0, device="cpu")
+    assert out["rgb"].shape == (16, 32, 3) and float(out["accumulation"].max()) > 0
+    res = pipeline.evaluate_scene(params, aux, cfg, [_batch()], device="cpu")
+    assert res["num_images"] == 1
+
+
+def test_forward_only_and_precision_pins():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    params, aux = _tiny_scene()
+    params.background.means.requires_grad_(True)
+    cfg = configs.mtgs_config(32, 16).replace(max_intersections=1 << 12)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        trainer.render_view(params, aux, cfg, _batch(), 0, device="cpu")
+    with pytest.raises(NotImplementedError):
+        trainer.render_view(params, aux, cfg, _batch(), 0, training=True, device="cpu")

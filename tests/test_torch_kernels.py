@@ -1,0 +1,169 @@
+"""The CUDA kernels against their plain PyTorch twins, on the card.
+
+These tests need an NVIDIA GPU with nvcc and skip on the CPU. The machine
+with the card has no JAX, so this file imports neither JAX nor mtgs_tpu,
+and it is run there without the repo's conftest (which imports JAX):
+
+    python -m pytest --noconftest tests/test_torch_kernels.py -q
+
+It also holds the numpy input generators and the blend comparison rule
+that the CPU parity tests (test_torch_blend.py, test_torch_expand.py) use.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mtgs_torch.raster import cuda_build
+from mtgs_torch.raster.binning import padded_capacity
+from mtgs_torch.raster.blend import blend_forward, blend_forward_plain
+from mtgs_torch.raster.chunk_math import CHUNK, NUM_GEOM
+from mtgs_torch.raster.expand_fused import expand_fused, expand_fused_plain
+
+TOL = 1e-4       # blend: f32 rounding of the same formulation
+FLIP_TOL = 2e-3  # blend: a pixel where a cut-off flips (golden tolerance)
+
+
+def make_expand_inputs(seed, *, n_live, n_dead, nw, tiles_x, tiles_y):
+    """Depth-sorted inputs as the rasterizer builds them: live gaussians
+    own >= 1 pair each, zero-pair gaussians form the tail."""
+    rng = np.random.default_rng(seed)
+    n = n_live + n_dead
+    tmin_x = rng.integers(0, tiles_x, n)
+    tmin_y = rng.integers(0, tiles_y, n)
+    span_x = np.minimum(1 + (rng.random(n) * (tiles_x - tmin_x)).astype(np.int64), 3)
+    span_y = np.minimum(1 + (rng.random(n) * (tiles_y - tmin_y)).astype(np.int64), 3)
+    counts = (span_x * span_y).astype(np.int32)
+    counts[n_live:] = 0
+    packed = (tmin_x | (tmin_y << 11) | (span_x << 22)).astype(np.int32)
+    offsets = (np.cumsum(counts) - counts).astype(np.int32)
+    total = np.int32(counts.sum())
+    table = rng.normal(size=(nw, n)).astype(np.float32)
+    return table, offsets, packed, total
+
+
+def make_blend_inputs(seed, *, tiles_x, tiles_y, tile_size, c_total,
+                      max_per_tile=300, deep_tiles=(), empty_tiles=()):
+    """Random tile-sorted slab [round8(6 + c_total), cap] and per-tile
+    ranges in the rasterizer's layout: tile runs are consecutive from an
+    unaligned first start. `deep_tiles` get many near-opaque splats
+    covering the tile (their pixels saturate and the tile exits early)."""
+    rng = np.random.default_rng(seed)
+    T = tiles_x * tiles_y
+    counts = rng.integers(1, max_per_tile, T).astype(np.int32)
+    for t in deep_tiles:
+        counts[t] = 3 * CHUNK + 17
+    for t in empty_tiles:
+        counts[t] = 0
+    first = int(rng.integers(1, CHUNK))  # unaligned start of tile 0
+    starts = (first + np.cumsum(counts) - counts).astype(np.int32)
+    total = first + int(counts.sum())
+    nw = NUM_GEOM + c_total
+    slab = np.zeros((((nw + 7) // 8) * 8, padded_capacity(total)), np.float32)
+    for t in range(T):
+        c, s = int(counts[t]), int(starts[t])
+        if c == 0:
+            continue
+        ox, oy = (t % tiles_x) * tile_size, (t // tiles_x) * tile_size
+        deep = t in deep_tiles
+        lo, hi = (0.3, 0.7) if deep else (-0.3, 1.3)
+        mx = ox + tile_size * rng.uniform(lo, hi, c)
+        my = oy + tile_size * rng.uniform(lo, hi, c)
+        sx = tile_size * rng.uniform(0.5, 1.2, c) if deep else rng.uniform(0.5, 8.0, c)
+        sy = tile_size * rng.uniform(0.5, 1.2, c) if deep else rng.uniform(0.5, 8.0, c)
+        th = rng.uniform(0, np.pi, c)
+        cs, sn = np.cos(th), np.sin(th)
+        v00 = cs * cs * sx * sx + sn * sn * sy * sy + 0.3
+        v11 = sn * sn * sx * sx + cs * cs * sy * sy + 0.3
+        v01 = cs * sn * (sx * sx - sy * sy)
+        det = v00 * v11 - v01 * v01
+        op = rng.uniform(0.9, 0.99, c) if deep else rng.uniform(0.0, 0.99, c)
+        cols = rng.uniform(0.0, 1.0, (c_total, c))
+        if c_total >= 4:
+            cols[-1] = rng.uniform(1.0, 60.0, c)  # a depth channel
+        rows = [mx, my, v11 / det, -v01 / det, v00 / det, op, *cols]
+        slab[:nw, s:s + c] = np.stack(rows)
+    offsets = (starts // CHUNK) * CHUNK
+    heads = starts - offsets
+    nchunks = np.where(counts > 0, (heads + counts + CHUNK - 1) // CHUNK, 0)
+    ranges = [a.astype(np.int32) for a in (offsets, heads, counts, nchunks)]
+    return slab, ranges
+
+
+def assert_blend_close(got, want, label):
+    """max |err| <= TOL except at reported cut-off flip pixels (<= FLIP_TOL,
+    at most 0.1% of pixels); each rgb channel's error is scaled by
+    max(1, its largest |value|) so the depth channel is held relatively."""
+    for g, w, part in zip(got, want, ("rgb", "t_final")):
+        g, w = np.asarray(g), np.asarray(w)
+        err = np.abs(g - w)
+        if part == "rgb":
+            scale = np.maximum(1.0, np.abs(w).max(axis=(0, 2), keepdims=True))
+            err = (err / scale).max(axis=1)  # per pixel over channels
+        flips = int((err > TOL).sum())
+        if flips:
+            print(f"{label} {part}: {flips} cut-off flip pixel(s), "
+                  f"max err {err.max():.3g}")
+        assert flips <= max(2, err.size // 1000), (label, part, flips)
+        assert err.max() <= FLIP_TOL, (label, part, float(err.max()))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+# (n_live, n_dead, I, tiles_x, tiles_y, nw): small shapes, then the main
+# path's (960x540 at tile 32, ~1M gaussians, I = 2^21, c_total 7)
+EXPAND_CASES = [
+    (300, 5, 2048, 6, 4, 13),
+    (200, 700, 2048, 6, 4, 10),
+    (900, 20, 1024, 6, 4, 13),
+    (700_000, 304_096, 1 << 21, 30, 17, 13),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_live,n_dead,I,tiles_x,tiles_y,nw", EXPAND_CASES)
+def test_expand_kernel_matches_plain(cuda, n_live, n_dead, I, tiles_x, tiles_y, nw):
+    table, offsets, packed, total = make_expand_inputs(
+        7, n_live=n_live, n_dead=n_dead, nw=nw, tiles_x=tiles_x, tiles_y=tiles_y)
+    args = [torch.from_numpy(a).to(cuda) for a in (table, offsets, packed)]
+    args.append(torch.tensor([total], dtype=torch.int32, device=cuda))
+    kw = dict(tiles_x=tiles_x, num_tiles=tiles_x * tiles_y)
+    before = cuda_build.LAUNCHES["expand_fused"]
+    got = expand_fused(*args, I, **kw)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["expand_fused"] == before + 1
+    want = expand_fused_plain(*args, I, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# (tile_size, c_total, tiles_x, tiles_y, max_per_tile)
+BLEND_CASES = [
+    (16, 3, 3, 2, 300),
+    (32, 4, 2, 2, 300),
+    (16, 7, 4, 3, 600),
+    (32, 7, 30, 17, 8000),  # the main path's tile grid and depth
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_size,c_total,tiles_x,tiles_y,max_per_tile", BLEND_CASES)
+def test_blend_kernel_matches_plain(cuda, tile_size, c_total, tiles_x, tiles_y,
+                                    max_per_tile):
+    slab, ranges = make_blend_inputs(
+        3, tiles_x=tiles_x, tiles_y=tiles_y, tile_size=tile_size, c_total=c_total,
+        max_per_tile=max_per_tile, deep_tiles=(1,), empty_tiles=(2,))
+    args = [torch.from_numpy(a).to(cuda) for a in (slab, *ranges)]
+    kw = dict(tile_size=tile_size, tiles_x=tiles_x, c_total=c_total)
+    before = cuda_build.LAUNCHES["blend_forward"]
+    got = blend_forward(*args, **kw)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["blend_forward"] == before + 1
+    want = blend_forward_plain(*args, **kw)
+    assert_blend_close([g.cpu() for g in got], [w.cpu() for w in want],
+                       f"tile{tile_size}/c{c_total}")
