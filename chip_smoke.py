@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (`mtgs_torch`) on one GPU.
 
-Drives the port's serving path through the entry points a user calls —
-`scene_from_state_dict` -> `evaluate_scene` -> `render_view` ->
-`rasterize` — at the full width of the `mtgs` preset (960x540, tile 32,
-antialiased, RGB+ED with predicted normals, max_intersections 2^21) on a
-~1M-gaussian scene made from `--seed`, and holds both hand-written CUDA
-kernels (`csrc/expand_fused.cu`, `csrc/blend_forward.cu`) against their
-plain PyTorch versions. Phases, each of which raises on failure:
+Drives the port's two paths through the entry points a user calls, at the
+full width of the `mtgs` preset (960x540, tile 32, antialiased, RGB+ED
+with predicted normals, max_intersections 2^21) on a ~1M-gaussian scene
+made from `--seed`: serving (`scene_from_state_dict` -> `evaluate_scene`
+-> `render_view` -> `rasterize`) and training (`Trainer.train` ->
+`train_step` -> `loss_and_grads` -> the differentiable `rasterize`), and
+holds the four hand-written CUDA kernels (`csrc/expand_fused.cu`,
+`csrc/blend_forward.cu`, `csrc/blend_backward.cu`, `csrc/segment_sum.cu`)
+against their plain PyTorch versions. Phases, each of which raises on
+failure:
 
   1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA;
-  2. build: both kernels compiled with nvcc for sm_90a, in parallel;
+  2. build: the four kernels compiled with nvcc for sm_90a, in parallel;
   3. goldens: the kernel path's rasterize on the four gsplat-math goldens
      in tests/goldens/ (render 2e-3, alpha 1e-3);
   4. main path: the scene in the JAX state-dict layout, carried across
@@ -20,12 +23,30 @@ plain PyTorch versions. Phases, each of which raises on failure:
      the views with the launch counters zeroed just before and read just
      after. Every view of that run is held against its own plain render:
      rgb, rgb_appearance and normal within 2e-3, accumulation within
-     1e-3, depth within 1e-3 relative where alpha > 1e-2, the view's PSNR
-     >= 50 dB; depth RMSE <= 1e-3 m; every kernel must have launched once
-     per view, and no view may truncate (n_intersections <=
+     1e-3, depth within 1e-3 relative where alpha > 1e-2 (2e-3 at the
+     few pixels the blend check allows to flip), the view's PSNR >= 50
+     dB; depth RMSE <= 1e-3 m; both forward kernels must have
+     launched once per view, and no view may truncate (n_intersections <=
      max_intersections);
-  5. kernels: each kernel against its plain version at the shapes of one
-     main-path view, timed with CUDA events (median of 20 after warm-up),
+  6. training: `Trainer.train` for TRAIN_STEPS steps of
+     `mtgs_config(max_steps=TRAIN_STEPS)` with refine_every overridden to
+     10 (one refine and one opacity reset fire at step 10), from a copy
+     of the scene with jittered means, features_dc and opacities, on the
+     phase-4 views with the plain renders as targets (LiDAR depth with
+     holes, pseudo depth without); the launch counters are zeroed just
+     before and read just after: each of the four kernels must launch
+     once per step. Every step finite with no skipped step, no
+     truncation; on the view of step 0 the total loss falls within each
+     stretch between opacity resets (the reset, which sets every
+     opacity to 0.01, raises it by design) and the l1 term falls after
+     the reset; ms per step is the median of the host clock around
+     `torch.cuda.synchronize()` after warm-up. Then one step's parameter
+     gradients and absgrad on the kernel path are held against the same
+     step with all four kernel wrappers swapped for their plain versions
+     (each leaf max-scaled within 2e-4);
+  5. kernels: each kernel against its plain version, the forward two at
+     the shapes of one serving view, the backward two at those of one
+     training step, timed with CUDA events (median of 20 after warm-up),
      with the least time the card could take for the same work.
 
 Prints the card line, the `{"kernels": [...]}` line and, last,
@@ -39,7 +60,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
+import dataclasses
 import importlib
+import itertools
 import json
 import subprocess
 import sys
@@ -54,9 +78,11 @@ from mtgs_torch.eval.metrics import masked_psnr
 from mtgs_torch.eval.pipeline import EvalConfig, evaluate_scene
 from mtgs_torch.models.convert import scene_from_state_dict
 from mtgs_torch.models.gaussians import init_skybox_node, node_capacity
-from mtgs_torch.raster import RasterizeConfig, blend, cuda_build, expand_fused, rasterize
+from mtgs_torch.raster import (
+    RasterizeConfig, blend, cuda_build, expand_fused, rasterize, segment_sum,
+)
 from mtgs_torch.raster.chunk_math import NUM_GEOM
-from mtgs_torch.train.trainer import Batch, render_view
+from mtgs_torch.train.trainer import Batch, Trainer, loss_and_grads, render_view
 
 # the modules (the packages' attributes of these names are functions)
 rasterize_mod = importlib.import_module("mtgs_torch.raster.rasterize")
@@ -73,10 +99,18 @@ PSNR_MIN = 50.0
 # each view of the kernel path against its plain render (the golden
 # tolerances the CPU tests hold the port to against the JAX package)
 VIEW_TOL = dict(rgb=2e-3, rgb_appearance=2e-3, normal=2e-3, accumulation=1e-3)
-DEPTH_REL_TOL = 1e-3    # where alpha > 1e-2
+DEPTH_REL_TOL = 1e-3    # where alpha > 1e-2; BLEND_FLIP_TOL at flipped pixels
 DEPTH_RMSE_MAX = 1e-3   # metres, against the plain depth where alpha > 0.5
+GRAD_TOL = 2e-4         # a gradient against the plain path's, over its largest |value|
+SEGMENT_TOL = 1e-5      # the segment sum: the same f32 sums in another order
 N_TRAVELS = 3
 N_FRAMES = 8
+TRAIN_STEPS = 31        # step 30 trains on the view of step 0 (6 views)
+REFINE_EVERY = 10       # the override of the preset's 100
+KERNELS = ("expand_fused", "blend_forward", "blend_backward", "dense_segment_sum")
+GRAD_STEP = 10          # the step of the gradient check: SH degree 3, sharp-shape gate open
+# the training start: the scene's alive rows jittered by these standard deviations
+JITTER = dict(means=0.05, features_dc=0.3, opacities=0.5)
 
 
 def log(msg: str) -> None:
@@ -232,20 +266,29 @@ def blend_error(got, want):
 
 
 @contextlib.contextmanager
-def kernels_replaced(expand, blend_fn):
-    """`rasterize` calls `expand` and `blend_fn` in place of its two kernel
-    wrappers inside the with block."""
-    saved = (rasterize_mod.expand_fused, rasterize_mod.blend_forward)
-    rasterize_mod.expand_fused, rasterize_mod.blend_forward = expand, blend_fn
+def kernels_replaced(fns: dict):
+    """`rasterize` calls fns[name] in place of its kernel wrapper `name`
+    (one of KERNELS) inside the with block."""
+    saved = {k: getattr(rasterize_mod, k) for k in fns}
+    for k, fn in fns.items():
+        setattr(rasterize_mod, k, fn)
     try:
         yield
     finally:
-        rasterize_mod.expand_fused, rasterize_mod.blend_forward = saved
+        for k, fn in saved.items():
+            setattr(rasterize_mod, k, fn)
+
+
+PLAIN = dict(expand_fused=expand_fused.expand_fused_plain,
+             blend_forward=blend.blend_forward_plain,
+             blend_backward=blend.blend_backward_plain,
+             dense_segment_sum=segment_sum.dense_segment_sum_plain)
 
 
 def plain_path():
-    """The whole path with the plain versions in place of the kernels."""
-    return kernels_replaced(expand_fused.expand_fused_plain, blend.blend_forward_plain)
+    """The whole path, forward and backward, with the plain versions in
+    place of the four kernels."""
+    return kernels_replaced(PLAIN)
 
 
 def capturing(args: dict):
@@ -256,8 +299,7 @@ def capturing(args: dict):
             args.setdefault(name, (a, kw))
             return fn(*a, **kw)
         return call
-    return kernels_replaced(wrap("expand_fused", rasterize_mod.expand_fused),
-                            wrap("blend_forward", rasterize_mod.blend_forward))
+    return kernels_replaced({k: wrap(k, getattr(rasterize_mod, k)) for k in KERNELS})
 
 
 @contextlib.contextmanager
@@ -280,12 +322,17 @@ def views_recorded(outs: list):
 
 def view_errors(got: dict, want: dict) -> dict:
     """One kernel-path view against its plain render: max abs error of
-    each image in VIEW_TOL, max relative depth error where alpha > 1e-2,
-    and the view's own PSNR (rgb_appearance, capped at 100 dB)."""
+    each image in VIEW_TOL, max relative depth error where alpha > 1e-2
+    and the pixels above DEPTH_REL_TOL (a termination decided on
+    differently rounded log sums lets a last, far gaussian in or out, as
+    the blend check allows), and the view's own PSNR (rgb_appearance,
+    capped at 100 dB)."""
     err = {k: float((got[k] - want[k]).abs().max()) for k in VIEW_TOL}
     covered = want["accumulation"] > 1e-2
     d_w = want["depth"][covered]
-    err["depth_rel"] = float(((got["depth"][covered] - d_w).abs() / d_w.abs()).max())
+    rel = (got["depth"][covered] - d_w).abs() / d_w.abs()
+    err["depth_rel"] = float(rel.max())
+    err["depth_flips"] = int((rel > DEPTH_REL_TOL).sum())
     err["covered"] = float(covered.float().mean())
     err["psnr"] = float(masked_psnr(got["rgb_appearance"], want["rgb_appearance"]))
     return err
@@ -347,8 +394,11 @@ def phase_main(args, dev):
         f"{args.n_inst} instance), {len(views)} views at {cfg.width}x{cfg.height}, "
         f"built in {time.perf_counter() - t0:.1f} s")
 
-    # ground truth: the plain path's render of each view, on the card
-    batches, plain_outs, plain_ms, n_isect = [], [], [], []
+    # ground truth: the plain path's render of each view, on the card; the
+    # training views add a LiDAR map with holes (half of the covered
+    # pixels dropped) and a hole-free pseudo depth
+    holes = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    batches, train_batches, plain_outs, plain_ms, n_isect = [], [], [], [], []
     for v in views:
         t1 = time.perf_counter()
         b0 = Batch(image=np.zeros((1, 1, 3), np.float32),
@@ -363,11 +413,16 @@ def phase_main(args, dev):
         lidar = torch.where(alpha > 0.5, out["depth"], torch.zeros_like(out["depth"]))
         batches.append(Batch(image=out["rgb_appearance"], mask=torch.ones_like(alpha),
                              lidar_depth=lidar, **v))
+        kept = torch.rand(alpha.shape, generator=holes, device=dev) < 0.5
+        train_batches.append(Batch(
+            image=out["rgb_appearance"], mask=torch.ones_like(alpha),
+            lidar_depth=torch.where(kept, lidar, torch.zeros_like(lidar)),
+            pseudo_depth=out["depth"], **v))
     require(max(n_isect) <= cfg.max_intersections,
             f"n_intersections {n_isect} exceed max_intersections "
             f"{cfg.max_intersections}: the render would be truncated")
 
-    # the main path: kernel launches counted from here ...
+    # the serving path: kernel launches counted from here ...
     kernel_outs = []
     with views_recorded(kernel_outs):
         cuda_build.reset_launches()
@@ -378,23 +433,26 @@ def phase_main(args, dev):
         eval_s = time.perf_counter() - t1
         launches = dict(cuda_build.LAUNCHES)
     # ... to here
-    for k, n in launches.items():
-        require(n >= len(views), f"kernel {k} launched {n} times over {len(views)} views")
+    for k in ("expand_fused", "blend_forward"):
+        require(launches[k] == len(views),
+                f"kernel {k} launched {launches[k]} times over {len(views)} views")
     require(result["num_images"] == len(views) == len(kernel_outs)
             and np.isfinite(result["ssim"]), f"bad eval result {result}")
 
     # every view of that run against its own plain render
     per_view = [view_errors(g, w) for g, w in zip(kernel_outs, plain_outs)]
+    flips_max = max(2, cfg.width * cfg.height // 1000)
     for i, e in enumerate(per_view):
         bad = [k for k, tol in VIEW_TOL.items() if not e[k] <= tol]
-        bad += ["depth_rel"] * (not e["depth_rel"] <= DEPTH_REL_TOL)
+        bad += ["depth_rel"] * (not (e["depth_rel"] <= BLEND_FLIP_TOL
+                                     and e["depth_flips"] <= flips_max))
         bad += ["psnr"] * (not e["psnr"] >= PSNR_MIN)
         require(not bad, f"view {i}: kernel path vs plain path out of tolerance "
                          f"in {bad}: {e}")
     rmse = {k: v for k, v in result.items() if k.endswith("depth_RMSE")}
     require(all(v <= DEPTH_RMSE_MAX for v in rmse.values()),
             f"depth RMSE above {DEPTH_RMSE_MAX} m: {rmse}")
-    worst = {k: max(e[k] for e in per_view) for k in (*VIEW_TOL, "depth_rel")}
+    worst = {k: max(e[k] for e in per_view) for k in (*VIEW_TOL, "depth_rel", "depth_flips")}
     worst["psnr_min"] = min(e["psnr"] for e in per_view)
 
     # steady-state time per view on the kernel path
@@ -425,13 +483,163 @@ def phase_main(args, dev):
         f"cc_psnr {result['cc_psnr']:.2f} dB vs the plain path; "
         f"median {main['ms_per_view_median']:.2f} ms/view (kernel path), "
         f"{main['plain_ms_per_view_median']:.1f} ms/view (plain path)")
-    return params, aux, cfg, batches[0], main
+    return params, aux, cfg, batches[0], main, (p_sd, a_sd, train_batches)
 
 
-def phase_kernels(params, aux, cfg, batch, launches, dev):
+def jittered_state(p_sd, a_sd, seed: int):
+    """A copy of the scene state with every alive row's means, features_dc
+    and opacity logits jittered (standard deviations JITTER): the
+    training start."""
+    rng = np.random.default_rng(seed + 101)
+    p = copy.deepcopy(p_sd)
+    for node, alive in ((p["background"], a_sd["background"]["alive"]),
+                        (p["skybox"], a_sd["skybox"]["alive"]),
+                        (p["instances"]["node"], a_sd["instances"]["alive"])):
+        live = (alive > 0).astype(np.float32)
+        for field, sd in JITTER.items():
+            a = node[field]
+            noise = sd * rng.normal(size=a.shape).astype(np.float32)
+            node[field] = a + noise * live.reshape(live.shape + (1,) * (a.ndim - live.ndim))
+    return p
+
+
+def max_scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want| (max |got| where want is all zero)."""
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    return err / scale if scale > 0 else err
+
+
+def phase_grads(cfg, state_sd, batch, dev):
+    """One training step's gradients on the kernel path against the same
+    step on the plain path. Returns (per-leaf errors, the kernel wrappers'
+    arguments captured in that step)."""
+    captured, res = {}, {}
+    for name, ctx in (("kernel", capturing(captured)), ("plain", plain_path())):
+        params, aux = scene_from_state_dict(*state_sd, device=dev)
+        t0 = time.perf_counter()
+        with ctx:
+            total, _, _, sink, grads = loss_and_grads(params, aux, cfg, batch, GRAD_STEP,
+                                                      device=dev)
+        torch.cuda.synchronize()
+        res[name] = dict(grads, absgrad=sink, total=total.reshape(1))
+        log(f"# gradients ({name} path): one step in {time.perf_counter() - t0:.2f} s, "
+            f"total loss {float(total):.6f}")
+    errs = {k: max_scaled_err(res["kernel"][k], w) for k, w in res["plain"].items()}
+    require(all(np.isfinite(float(g.abs().max())) for g in res["kernel"].values()
+                if g.numel()), "non-finite gradient on the kernel path")
+    require(float(res["plain"]["absgrad"].abs().max()) > 0, "absgrad is all zero")
+    bad = {k: e for k, e in errs.items() if not e <= GRAD_TOL}
+    require(not bad, f"kernel-path gradients differ from the plain path's: {bad}")
+    log(f"# gradients, kernel path against plain path (max-scaled, tol {GRAD_TOL}): "
+        f"worst {max(errs, key=errs.get)} {max(errs.values()):.3g}")
+    return errs, captured
+
+
+def phase_train(args, dev, state_sd, batches):
+    """`Trainer.train` on the kernel path with the launch counters zeroed
+    just before and read just after."""
+    cfg = configs.mtgs_config(args.width, args.height, max_steps=TRAIN_STEPS)
+    preset = cfg.control.refine_every
+    cfg = cfg.replace(control=dataclasses.replace(cfg.control, refine_every=REFINE_EVERY))
+    log(f"# training: mtgs_config({args.width}, {args.height}, max_steps={TRAIN_STEPS}) "
+        f"with control.refine_every overridden {preset} -> {REFINE_EVERY}; start: jitter "
+        f"{JITTER}")
+    grad_errs, captured = phase_grads(cfg, state_sd, batches[0], dev)
+
+    params, aux = scene_from_state_dict(*state_sd, device=dev)
+    trainer = Trainer(cfg, params, aux, itertools.cycle(batches), seed=args.seed, device=dev)
+    n0 = int(trainer.aux.background.num_alive) + int(trainer.aux.skybox.num_alive) \
+        + int(trainer.aux.instances.num_alive.sum())
+    stamps, logged = [], []
+
+    def on_step(step, metrics):  # called after the step's refine and reset
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        logged.append(metrics)
+
+    torch.cuda.synchronize()
+    # the training path: kernel launches counted from here ...
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    trainer.train(TRAIN_STEPS, log_every=1, callback=on_step)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(cuda_build.LAUNCHES)
+    # ... to here
+    step_ms = list(1e3 * np.diff([t0] + stamps))
+    losses = [m["total_loss"] for m in logged]
+    l1 = [m["l1"] for m in logged]
+    v0 = list(range(0, len(logged), len(batches)))  # the steps on the view of step 0
+    n1 = int(trainer.aux.background.num_alive) + int(trainer.aux.skybox.num_alive) \
+        + int(trainer.aux.instances.num_alive.sum())
+    res = dict(
+        steps=TRAIN_STEPS, refine_every=REFINE_EVERY, jitter=JITTER, seconds=train_s,
+        ms_per_step_median=float(np.median(step_ms[2:])), step_ms=step_ms,
+        launches=launches, total_loss=losses, l1=l1, psnr=[m["psnr"] for m in logged],
+        n_intersections=[m["n_intersections"] for m in logged],
+        gaussians_before=n0, gaussians_after=n1, refine_events=trainer.refine_events,
+        reset_steps=trainer.reset_steps, growth_events=trainer.growth_events,
+        first_metrics=logged[0], last_metrics=logged[-1], grad_errors=grad_errs)
+    log(f"# training: {len(logged)} steps in {train_s:.2f} s, median "
+        f"{res['ms_per_step_median']:.2f} ms/step after 2 warm-up steps; launches {launches}")
+    log(f"# training: total loss {losses[0]:.5f} -> {losses[-1]:.5f}, psnr "
+        f"{res['psnr'][0]:.2f} -> {res['psnr'][-1]:.2f} dB; per step "
+        f"{[round(v, 5) for v in losses]}; l1 on view 0 at steps {v0}: "
+        f"{[round(l1[i], 5) for i in v0]}")
+    log(f"# training: first step {logged[0]}")
+    log(f"# training: last step {logged[-1]}")
+    log(f"# training: refines {trainer.refine_events}, opacity resets at {trainer.reset_steps}, "
+        f"growth {trainer.growth_events}; gaussians {n0} -> {n1}; n_intersections "
+        f"max {max(res['n_intersections'])}")
+
+    for k in KERNELS:
+        require(launches[k] == TRAIN_STEPS,
+                f"kernel {k} launched {launches[k]} times in {TRAIN_STEPS} training steps")
+    require(len(logged) == TRAIN_STEPS, f"{len(logged)} steps logged")
+    for i, m in enumerate(logged):
+        require(all(np.isfinite(v) for v in m.values()), f"step {i}: non-finite metrics {m}")
+        require(m["nonfinite_grad_step"] == 0, f"step {i} skipped a non-finite gradient")
+    limit = cfg.max_intersections
+    for i, m in enumerate(logged):
+        limit = max([limit] + [e["new"] for e in trainer.growth_events
+                               if e["node"] == "max_intersections" and e["step"] <= i])
+        require(m["n_intersections"] <= limit,
+                f"step {i}: {m['n_intersections']} intersections > {limit}: truncated")
+    require(trainer.refine_events and trainer.reset_steps,
+            f"refines {trainer.refine_events}, resets {trainer.reset_steps}: expected both")
+    # on view 0: the total loss falls within each stretch between opacity
+    # resets (a reset lowers every opacity to 0.01 and raises the loss);
+    # the l1 term falls over the last stretch, the one after the reset
+    bounds = [0, *trainer.reset_steps, TRAIN_STEPS]
+    stretches = [[i for i in v0 if lo <= i < hi] for lo, hi in zip(bounds, bounds[1:])]
+    for s in stretches:
+        require(len(s) >= 2 and losses[s[-1]] < losses[s[0]],
+                f"total loss on view 0 did not fall between resets: steps {s}, "
+                f"loss {[losses[i] for i in s]}")
+    require(l1[stretches[-1][-1]] < l1[stretches[-1][0]],
+            f"l1 on view 0 did not fall after the reset: steps {stretches[-1]}, "
+            f"l1 {[l1[i] for i in stretches[-1]]}")
+    return trainer, res, captured
+
+
+def row_errors(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Each row's max |error| over its largest |value| (the error itself
+    for an all-zero row)."""
+    err = (got - want).abs().amax(dim=1)
+    scale = want.abs().amax(dim=1)
+    return torch.where(scale > 0, err / torch.clamp(scale, min=1e-30), err)
+
+
+@torch.no_grad()
+def phase_kernels(params, aux, cfg, batch, by_path, train_captured, dev):
+    """Each kernel against its plain version: the forward two at one
+    serving view's shapes, the backward two at one training step's.
+    by_path: {path: launch counts of that path's run}."""
     captured = {}
     with capturing(captured):
         render_view(params, aux, cfg, batch, 10**9, device=dev)
+    launches = {k: sum(c[k] for c in by_path.values()) for k in KERNELS}
     kernels = []
 
     # expand_fused: exact integer math and copies
@@ -501,23 +709,106 @@ def phase_kernels(params, aux, cfg, batch, launches, dev):
         pairs_read=stats["pairs_read"], pair_evals=stats["pair_evals"],
         pair_blends=stats["pair_blends"], bytes=b_bytes, ops=b_ops,
         bound_bytes_ms=b_bound_bytes, bound_ops_ms=b_bound_ops))
+
+    # blend_backward: the replay of one training step's blend
+    a, kw = train_captured["blend_backward"]
+    got = blend.blend_backward(*a, **kw)
+    want = blend.blend_backward_plain(*a, **kw)
+    stats = {}
+    blend.blend_forward_plain(*a[:5], **kw, stats=stats)  # the pairs the replay reaches
+    torch.cuda.synchronize()
+    slab_t, offs, heads, counts, nchunks = a[:5]
+    c_total, T = kw["c_total"], offs.shape[0]
+    nw = NUM_GEOM + c_total
+    errs = row_errors(got[:nw], want[:nw])
+    err = float(errs.max())
+    require(err <= GRAD_TOL and not got[nw:].any(),
+            f"blend_backward: row errors {errs.tolist()} (tol {GRAD_TOL})")
+    n_pix = a[6].numel()
+    # read: the slab columns up to each tile's last evaluated one, the
+    # ranges, rgb, t_final and both cotangents; written: the whole
+    # zero-initialised gradient slab
+    bb_bytes = 4 * (nw * stats["pairs_read"] + 3 * T + (2 * c_total + 2) * n_pix
+                    + got.numel())
+    # per evaluated pair the forward's 14 (sigma, exp, scale); per
+    # composited one: clamp, log1p, log sum, exp and weight 5, gdot 2 c,
+    # the running w gdot, 1 / (1 - alpha) and ga 10, the colour sums 2 c,
+    # and where alpha was not clamped g_sigma with the five centred
+    # moments 13 and g_opac 2
+    bb_ops = (14 * stats["pair_evals"] + (30 + 4 * c_total) * stats["pair_blends"]
+              - 15 * stats["pair_clamped"])
+    bb_bound_bytes = 1e3 * bb_bytes / PEAK_BYTES_PER_S
+    bb_bound_ops = 1e3 * bb_ops / PEAK_F32_PER_S
+    kernels.append(dict(
+        name="blend_backward", route="cuda", source="mtgs_torch/csrc/blend_backward.cu",
+        replaces="mtgs_tpu/raster/blend_pallas.py:462",
+        tpu_kernel="mtgs_tpu/raster/blend_pallas.py::blend_backward_pallas",
+        launches=launches["blend_backward"], max_abs_err=float((got - want).abs().max()),
+        max_scaled_err=err, tol=dict(max_scaled=GRAD_TOL), row_errors=errs.tolist(),
+        ms=cuda_ms(lambda: blend.blend_backward(*a, **kw)),
+        plain_ms=cuda_ms(lambda: blend.blend_backward_plain(*a, **kw), reps=3, warmup=1),
+        bound_ms=max(bb_bound_bytes, bb_bound_ops),
+        bound_by="operations" if bb_bound_ops >= bb_bound_bytes else "bytes",
+        library_ms=None,
+        library_note="none: no PyTorch call computes the gradient of a depth-ordered blend",
+        shapes=dict(slab=list(slab_t.shape), tiles=T, tile_size=kw["tile_size"],
+                    c_total=c_total, pairs=int(counts.sum())),
+        pairs_read=stats["pairs_read"], pair_evals=stats["pair_evals"],
+        pair_blends=stats["pair_blends"], pair_clamped=stats["pair_clamped"],
+        bytes=bb_bytes, ops=bb_ops,
+        bound_bytes_ms=bb_bound_bytes, bound_ops_ms=bb_bound_ops))
+
+    # dense_segment_sum: one training step's slot rows to per-gaussian sums
+    (rows, src, n), _ = train_captured["dense_segment_sum"]
+    got = segment_sum.dense_segment_sum(rows, src, n)
+    want = segment_sum.dense_segment_sum_plain(rows, src, n)
+    torch.cuda.synchronize()
+    errs = row_errors(got, want)
+    err = float(errs.max())
+    require(err <= SEGMENT_TOL, f"dense_segment_sum: row errors {errs.tolist()}")
+    live_slots = int((src < n).sum())
+    W = rows.shape[0]
+    # the live slots' rows and every slot's owner read once, the output written once
+    s_bytes = 4 * (W * live_slots + src.numel() + W * (n + 1))
+    src64 = src.to(torch.int64)
+    kernels.append(dict(
+        name="dense_segment_sum", route="cuda", source="mtgs_torch/csrc/segment_sum.cu",
+        replaces="mtgs_tpu/raster/segment_sum.py:75",
+        tpu_kernel="mtgs_tpu/raster/segment_sum.py::dense_segment_sum",
+        launches=launches["dense_segment_sum"], max_abs_err=float((got - want).abs().max()),
+        max_scaled_err=err, tol=dict(max_scaled=SEGMENT_TOL),
+        ms=cuda_ms(lambda: segment_sum.dense_segment_sum(rows, src, n)),
+        plain_ms=cuda_ms(lambda: segment_sum.dense_segment_sum_plain(rows, src, n)),
+        bound_ms=1e3 * s_bytes / PEAK_BYTES_PER_S, bound_by="bytes",
+        library_ms=cuda_ms(lambda: torch.zeros((W, n + 1), dtype=torch.float32, device=dev)
+                           .index_add_(1, src64, rows)),
+        library_note="index_add_ of the rows into a zeroed [W, n + 1] (index precomputed)",
+        shapes=dict(rows=list(rows.shape), n=n, live_slots=live_slots), bytes=s_bytes))
     for k in kernels:
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
         k["kernel_ms"] = k["ms"]
         log(f"# kernel {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, "
             f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}), max err {k['max_abs_err']:.3g}")
     return kernels
 
 
-def phase_profile(params, aux, cfg, batch, dev, top: int = 25):
-    """torch.profiler over one kernel-path view: device time by kernel
-    name, and the device's busy share of the view's wall time."""
+KERNEL_SYMBOLS = dict(expand_fused="expand_fused_kernel",
+                      blend_forward="blend_forward_kernel",
+                      blend_backward="blend_backward_kernel",
+                      dense_segment_sum="segment_sum_kernel")
+
+
+def phase_profile(label, fn, top: int = 25):
+    """torch.profiler over one call of fn (after one unprofiled call):
+    device time by kernel name, the device's busy share of the wall time,
+    and the time of each of this port's kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    render_view(params, aux, cfg, batch, 10**9, device=dev)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render_view(params, aux, cfg, batch, 10**9, device=dev)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -527,11 +818,15 @@ def phase_profile(params, aux, cfg, batch, dev, top: int = 25):
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    log(f"# profile: one view {wall_ms:.2f} ms wall (profiled), device busy "
-        f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), {len(kernels)} kernel launches")
+    ours = {k: sum(ms for name, (ms, _) in by_name.items() if sym in name)
+            for k, sym in KERNEL_SYMBOLS.items()}
+    log(f"# profile: {label} {wall_ms:.2f} ms wall (profiled), device busy "
+        f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), {len(kernels)} kernel launches; "
+        f"the port's kernels {sum(ours.values()):.3f} ms {ours}")
     for name, (ms, n) in rows[:top]:
         log(f"#   {ms:8.3f} ms  x{n:<4d} {name[:110]}")
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, launches=len(kernels),
+                port_kernels_ms=ours,
                 by_kernel=[dict(name=k, ms=ms, count=n) for k, (ms, n) in rows])
 
 
@@ -546,7 +841,8 @@ def main(argv=None):
     ap.add_argument("--n-sky", type=int, default=100_000)
     ap.add_argument("--n-inst", type=int, default=4096)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one view with torch.profiler (kernel time by name)")
+                    help="also trace one view and one training step with torch.profiler "
+                         "(kernel time by name)")
     ap.add_argument("--out", type=Path, default=None,
                     help="directory to write the full results to (chip_smoke.json)")
     args = ap.parse_args(argv)
@@ -560,14 +856,24 @@ def main(argv=None):
     card = phase_card()
     build_s = phase_build()
     goldens = phase_goldens(dev)
-    params, aux, cfg, batch, main_res = phase_main(args, dev)
-    kernels = phase_kernels(params, aux, cfg, batch, main_res["launches"], dev)
-    prof = phase_profile(params, aux, cfg, batch, dev) if args.profile else None
+    params, aux, cfg, batch, main_res, (p_sd, a_sd, train_batches) = phase_main(args, dev)
+    state_sd = (jittered_state(p_sd, a_sd, args.seed), a_sd)
+    trainer, train_res, train_captured = phase_train(args, dev, state_sd, train_batches)
+    kernels = phase_kernels(params, aux, cfg, batch,
+                            dict(serving=main_res["launches"], training=train_res["launches"]),
+                            train_captured, dev)
+    prof = None
+    if args.profile:
+        prof = dict(
+            view=phase_profile("one view", lambda: render_view(
+                params, aux, cfg, batch, 10**9, device=dev)),
+            train_step=phase_profile("one training step", lambda: trainer.train(1)))
 
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         summary = dict(card=card, build_seconds=build_s, goldens=goldens, main=main_res,
-                       kernels=kernels, profile=prof, seconds=time.perf_counter() - t_start)
+                       train=train_res, kernels=kernels, profile=prof,
+                       seconds=time.perf_counter() - t_start)
         (args.out / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,10 +4,11 @@ A second package beside `mtgs_tpu/`, mirroring its layout so every module
 has an obvious counterpart:
 
     core/      quaternions, spherical harmonics, view matrices
-    raster/    projection, binning, the fused forward rasterizer and its
-               hand-written CUDA kernels (csrc/) with plain twins
+    raster/    projection, binning, the fused differentiable rasterizer and
+               its hand-written CUDA kernels (csrc/) with plain twins
     models/    scene-graph nodes, instances, appearance, state conversion
-    train/     render-path pieces of the trainer (render_view, losses)
+    train/     render_view, losses, Adam, density control, camera-pose
+               optimisation, the training step and loop
     eval/      metric suite + the per-traversal eval pipeline
 
 This package imports torch, numpy and scipy only — never jax or mtgs_tpu.

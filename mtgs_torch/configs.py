@@ -1,10 +1,12 @@
-"""Method presets; port of `mtgs_tpu/configs.py::mtgs_config` (render
-fields only: densify, loss and optimizer settings come with training)."""
+"""Method presets; port of `mtgs_tpu/configs.py::mtgs_config` and
+`optimizer_table`."""
 
 from __future__ import annotations
 
 from mtgs_torch.models.scene_graph import SceneConfig
 from mtgs_torch.train.control import ControlConfig
+from mtgs_torch.train.losses import LossConfig
+from mtgs_torch.train.optim import OptimConfig, default_groups
 from mtgs_torch.train.trainer import TrainerConfig
 
 ITERS = 30001
@@ -12,16 +14,58 @@ ITERS = 30001
 
 def mtgs_config(width: int = 960, height: int = 540, max_steps: int = ITERS) -> TrainerConfig:
     """The full MTGS method (`mtgs/config/MTGS.py:25-213`): antialiased,
-    RGB+ED with predicted normals, SH degree 3 ramped over the first 13%
-    of the run (step-valued fields scale by max_steps / 30001)."""
+    RGB+ED with predicted normals, LiDAR InverseL1 depth, NCC, normal and
+    shape losses. The reference's schedule is written in absolute steps
+    for 30001 iterations; the step-valued fields scale by
+    max_steps / 30001 so each event keeps its place in the run (the
+    reset interval keeps the last reset at ~40%)."""
     s = max_steps / ITERS
+
+    def st(v: int) -> int:  # scale a step-valued schedule field
+        return max(int(round(v * s)), 1)
+
     return TrainerConfig(
         width=width,
         height=height,
         max_steps=max_steps,
         rasterize_mode="antialiased",
         predict_normals=True,
-        control=ControlConfig(sh_degree=3,
-                              sh_degree_interval=max(int(round(1000 * s)), 1)),
+        control=ControlConfig(
+            densify_from_iter=st(500),
+            refine_every=100,
+            stop_split_at=st(15000),
+            reset_alpha_every=max(int(round(30 * s)), 2),
+            continue_cull_post_densification=False,
+            cull_alpha_thresh=0.005,
+            cull_scale_thresh=0.5,
+            densify_size_thresh=0.2,
+            densify_grad_thresh=0.001,
+            n_split_samples=2,
+            clone_sample_means=True,
+            stop_screen_size_at=st(15000),
+            cull_screen_size=150.0,
+            split_screen_size=100.0,
+            sh_degree=3,
+            sh_degree_interval=st(1000),
+            use_abs_grad=True,
+        ),
+        loss=LossConfig(
+            ssim_lambda=0.2,
+            depth_lambda=0.5,
+            depth_loss_type="InverseL1",
+            depth_source="lidar",
+            ncc_lambda=0.1,
+            normal_lambda=0.1,
+            use_normal_loss=True,
+            use_normal_tv_loss=True,
+            two_d_gaussians=True,
+            oob_lambda=1.0,
+            sharp_shape_reg_lambda=1.0,
+        ),
         scene=SceneConfig(sh_degree=3, travel_mode="index"),
     )
+
+
+def optimizer_table(max_steps: int = ITERS) -> OptimConfig:
+    """The per-group optimizer table (`mtgs/config/MTGS.py:121-187`)."""
+    return OptimConfig(groups=default_groups(max_steps))

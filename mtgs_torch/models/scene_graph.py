@@ -1,4 +1,4 @@
-"""The multi-traversal gaussian scene graph (render path).
+"""The multi-traversal gaussian scene graph.
 
 Port of `mtgs_tpu/models/scene_graph.py`: every node is a padded block
 and composition is a concatenation
@@ -16,7 +16,7 @@ that carries them raises NotImplementedError.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -85,6 +85,23 @@ class ViewInputs:
     image_idx: int = 0
 
 
+def node_segments(params: SceneParams) -> List[Tuple[str, int, int]]:
+    """(name, start, end) of each node's rows in the concatenation
+    [background | skybox | instance 0 | instance 1 | ...]."""
+    segs = []
+    off = 0
+    caps = [("background", params.background.capacity)]
+    if params.skybox is not None:
+        caps.append(("skybox", params.skybox.capacity))
+    if params.instances is not None:
+        n_inst, icap = params.instances.node.means.shape[:2]
+        caps += [(f"instance_{i}", icap) for i in range(n_inst)]
+    for name, cap in caps:
+        segs.append((name, off, off + cap))
+        off += cap
+    return segs
+
+
 def _multicolor_features(p: GaussianNodeParams, travel_index, mode: str):
     """Per-traversal (features_dc, features_rest), with the eval fallbacks
     for unseen traversals ("mean", "null")."""
@@ -107,9 +124,11 @@ def _multicolor_features(p: GaussianNodeParams, travel_index, mode: str):
 
 
 def _eval_colors(means, features_dc, features_rest, cam_pos, sh_mask):
-    """Masked-degree SH colour evaluation, clamped to [0, 1]."""
+    """Masked-degree SH colour evaluation, clamped to [0, 1]. The view
+    direction carries no gradient to the means (the JAX package's
+    stop_gradient)."""
     coeffs = torch.cat([features_dc[..., None, :], features_rest], dim=-2)
-    dirs = means - cam_pos
+    dirs = means.detach() - cam_pos
     dirs = dirs / torch.sqrt(torch.sum(dirs * dirs, -1, keepdim=True) + 1e-24)
     basis = sh_basis(3, dirs) * sh_mask
     k = coeffs.shape[-2]

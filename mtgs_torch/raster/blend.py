@@ -1,15 +1,21 @@
-"""Per-tile forward alpha blend: CUDA kernel wrapper + plain twin.
+"""Per-tile alpha blend, forward and backward: CUDA kernel wrappers +
+plain twins.
 
-Port of `mtgs_tpu/raster/blend_pallas.py::blend_forward_pallas` (the
-kernel, `csrc/blend_forward.cu`) and `blend_xla.py::blend_forward_xla`
-(the plain version, `blend_forward_plain`). Both keep the JAX signature:
+Port of `mtgs_tpu/raster/blend_pallas.py::blend_forward_pallas` and
+`blend_backward_pallas` (the kernels, `csrc/blend_forward.cu` and
+`csrc/blend_backward.cu`) and `blend_xla.py::blend_forward_xla` /
+`blend_backward_xla` (the plain versions). All keep the JAX signature:
 an attribute-major slab [W >= 6 + c_total, cap] whose rows are mx, my,
 conic a, b, c, opacity, colours; per-tile 128-aligned window starts
 `tile_offsets`, `tile_heads` (first live lane), `tile_counts` and
 `tile_nchunks`. Each tile blends slab columns
 [offset + head, offset + head + count) front to back.
 
-Returns (rgb_tiles [T, c_total, PIX], t_final [T, PIX]).
+The forward returns (rgb_tiles [T, c_total, PIX], t_final [T, PIX]);
+the backward the per-intersection gradients g_slab_t [W, cap] (rows g_mx,
+g_my, g_cA, g_cB, g_cC, g_opac, g_colours), zero wherever no pixel
+composited the intersection: slack slots, slots past a tile's early exit
+and lanes outside every tile's range.
 """
 
 from __future__ import annotations
@@ -20,19 +26,26 @@ import torch
 
 from mtgs_torch.raster import cuda_build
 from mtgs_torch.raster.chunk_math import (
-    CHUNK, LOG_T_EPS, MAX_CH, NUM_GEOM, forward_chunk, pixel_features,
+    CHUNK, LOG_T_EPS, MAX_CH, NUM_GEOM, backward_chunk, forward_chunk, pixel_features,
 )
 
-_SOURCE = "blend_forward.cu"
-_TILE_GROUP = 128  # tiles per step of the plain version (bounds its temporaries)
+_TILE_GROUP = 128  # tiles per step of the plain versions (bounds their temporaries)
 
 
 def _lib():
-    lib = cuda_build.load(_SOURCE)
-    fn = lib.mtgs_blend_forward
+    fn = cuda_build.load("blend_forward.cu").mtgs_blend_forward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, ctypes.c_longlong, p, p, p, i, i, i, i, i, p, p, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _lib_backward():
+    fn = cuda_build.load("blend_backward.cu").mtgs_blend_backward
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, ctypes.c_longlong, i, p, p, p, i, i, i, i, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -122,3 +135,89 @@ def blend_forward_plain(slab_t, tile_offsets, tile_heads, tile_counts, tile_nchu
             log_t_all[ti], log_t_out[ti], rgb[ti] = a, o, r
         k += 1
     return rgb, torch.exp(log_t_out)
+
+
+def _check_backward_inputs(slab_t, ranges, rgb_tiles, t_final, g_rgb, g_t, c_total, P):
+    _check_inputs(slab_t, ranges, c_total)
+    T = ranges[0].shape[0]
+    for name, a, shape in (("rgb_tiles", rgb_tiles, (T, c_total, P)), ("t_final", t_final, (T, P)),
+                           ("g_rgb", g_rgb, (T, c_total, P)), ("g_t", g_t, (T, P))):
+        if a.dtype != torch.float32 or tuple(a.shape) != shape or a.device != slab_t.device:
+            raise ValueError(f"{name} must be float32 {list(shape)} on the slab's device")
+
+
+def blend_backward(slab_t, tile_offsets, tile_heads, tile_counts, tile_nchunks,
+                   rgb_tiles, t_final, g_rgb, g_t, *, tile_size: int, tiles_x: int,
+                   c_total: int):
+    """The backward blend: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. Returns g_slab_t [W, cap], zero-initialised."""
+    ranges = (tile_offsets, tile_heads, tile_counts, tile_nchunks)
+    P = tile_size * tile_size
+    _check_backward_inputs(slab_t, ranges, rgb_tiles, t_final, g_rgb, g_t, c_total, P)
+    if slab_t.device.type == "cpu":
+        return blend_backward_plain(
+            slab_t, *ranges, rgb_tiles, t_final, g_rgb, g_t, tile_size=tile_size,
+            tiles_x=tiles_x, c_total=c_total)
+    if slab_t.device.type != "cuda":
+        raise ValueError(f"unsupported device {slab_t.device}")
+    if tile_size not in (16, 32):
+        raise ValueError(f"the CUDA blend takes tile_size 16 or 32, got {tile_size}")
+    W, cap = slab_t.shape
+    T = tile_offsets.shape[0]
+    g_slab = torch.zeros((W, cap), dtype=torch.float32, device=slab_t.device)
+    ranges = [r.contiguous() for r in ranges]
+    dense = [a.contiguous() for a in (rgb_tiles, t_final, g_rgb, g_t)]
+    err = _lib_backward()(
+        slab_t.data_ptr(), cap, W, ranges[0].data_ptr(), ranges[1].data_ptr(),
+        ranges[2].data_ptr(), T, tile_size, tiles_x, c_total,
+        *(a.data_ptr() for a in dense), g_slab.data_ptr(),
+        torch.cuda.current_stream(slab_t.device).cuda_stream,
+    )
+    cuda_build.check(err, "blend_backward")
+    cuda_build.LAUNCHES["blend_backward"] += 1
+    return g_slab
+
+
+def blend_backward_plain(slab_t, tile_offsets, tile_heads, tile_counts, tile_nchunks,
+                         rgb_tiles, t_final, g_rgb, g_t, *, tile_size: int,
+                         tiles_x: int, c_total: int):
+    """chunk_math's backward replay, vectorised over tiles, looping over
+    chunks; a tile drops out once its chunks are done or all of its pixels
+    are saturated (later chunks have exactly zero gradients). Each tile's
+    in-range lanes are written to their slab columns; the rest of the
+    output stays zero."""
+    dev = slab_t.device
+    T = tile_offsets.shape[0]
+    W, cap = slab_t.shape
+    nw = NUM_GEOM + c_total
+    F = pixel_features(tile_size, dev)
+    tid = torch.arange(T, device=dev)
+    ox = ((tid % tiles_x) * tile_size).to(torch.float32)
+    oy = ((tid // tiles_x) * tile_size).to(torch.float32)
+    P = tile_size * tile_size
+    log_t_all = torch.zeros((T, P), dtype=torch.float32, device=dev)
+    wg_cum = torch.zeros((T, P), dtype=torch.float32, device=dev)
+    total_dot = (g_rgb * rgb_tiles).sum(dim=1)
+    out = torch.zeros((W, cap), dtype=torch.float32, device=dev)
+    nchunks = tile_nchunks.to(torch.int64)
+    lanes = torch.arange(CHUNK, device=dev)
+    k = 0
+    while True:
+        active = (nchunks > k) & (log_t_all.amax(dim=1) > LOG_T_EPS)
+        idx = active.nonzero()[:, 0]
+        if idx.numel() == 0:
+            break
+        for g in range(0, idx.numel(), _TILE_GROUP):
+            ti = idx[g:g + _TILE_GROUP]
+            cols = tile_offsets[ti].to(torch.int64)[:, None] + k * CHUNK + lanes
+            lo = tile_heads[ti] - k * CHUNK
+            hi = lo + tile_counts[ti]
+            g_chunk, a, s = backward_chunk(
+                slab_t[:nw, torch.clamp(cols, max=cap - 1)], ox[ti], oy[ti], F, lo, hi,
+                g_rgb[ti], g_t[ti], t_final[ti], total_dot[ti],
+                log_t_all[ti], wg_cum[ti])
+            log_t_all[ti], wg_cum[ti] = a, s
+            keep = (lanes >= lo[:, None]) & (lanes < hi[:, None])
+            out[:nw, cols[keep]] = g_chunk[:, keep]
+        k += 1
+    return out

@@ -1,9 +1,11 @@
-"""Per-tile blend constants and the forward chunk math (plain PyTorch).
+"""Per-tile blend constants and the chunk math (plain PyTorch).
 
 Port of `mtgs_tpu/raster/chunk_math.py` (:48-56 constants, `_chunk_common`
-:163-224 and `forward_chunk` :227-246), batched over a leading tile axis.
-It is the arithmetic of the plain blend (`blend.blend_forward_plain`) and
-states what the CUDA kernel (`csrc/blend_forward.cu`) must compute.
+:163-224, `forward_chunk` :227-246 and `backward_chunk` :249-320),
+batched over a leading tile axis. It is the arithmetic of the plain
+blends (`blend.blend_forward_plain`, `blend.blend_backward_plain`) and
+states what the CUDA kernels (`csrc/blend_forward.cu`,
+`csrc/blend_backward.cu`) must compute.
 
 Blend semantics match gsplat v1.4 / classic 3DGS:
   alpha = min(0.999, opacity * exp(-sigma)); skip if sigma < 0 or
@@ -64,6 +66,26 @@ def sigma(Q: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
     return s
 
 
+def _chunk_common(slab, origin_x, origin_y, F, lane_lo, lane_hi, log_t_all):
+    """The per-chunk quantities the forward and the backward share
+    (`_chunk_common` of the JAX package), each [A, PIX, CHUNK]."""
+    Q = conic_coefficients(slab[:NUM_GEOM], origin_x[:, None], origin_y[:, None])
+    S = sigma(Q, F)
+    E = torch.exp(-S)
+    raw = slab[5][:, None, :] * E
+    lane = torch.arange(slab.shape[-1], device=slab.device)
+    in_range = (lane[None, :] >= lane_lo[:, None]) & (lane[None, :] < lane_hi[:, None])
+    contrib = (S >= 0.0) & (raw >= ALPHA_MIN) & in_range[:, None, :]
+    alpha = torch.clamp(raw, max=ALPHA_MAX) * contrib
+    L = torch.log1p(-alpha)
+    incl = torch.cumsum(L, dim=-1) + log_t_all[..., None]
+    mask = (incl > LOG_T_EPS).to(L.dtype)
+    T = torch.exp(incl - L)
+    w = alpha * T * mask
+    return dict(E=E, raw=raw, in_range=in_range, contrib=contrib, alpha=alpha,
+                L=L, incl=incl, mask=mask, T=T, w=w)
+
+
 def forward_chunk(slab, origin_x, origin_y, F, lane_lo, lane_hi,
                   log_t_all, log_t_out, rgb, stats=None):
     """Blend one CHUNK of intersections into A tiles' accumulators.
@@ -74,32 +96,72 @@ def forward_chunk(slab, origin_x, origin_y, F, lane_lo, lane_hi,
     (log_t_all, log_t_out, rgb). If `stats` is a dict, stats["pair_evals"]
     is incremented by the (pixel, intersection) pairs a front-to-back
     loop with early exit must evaluate, stats["pair_blends"] by those of
-    them that are composited, and stats["pairs_read"] by the
+    them that are composited (stats["pair_clamped"] by those composited at
+    alpha clamped to ALPHA_MAX), and stats["pairs_read"] by the
     intersections each tile must read: those up to the furthest one any
     of its pixels evaluates (summed over chunks, each tile's furthest
     needed index less its start, plus one).
     """
-    Q = conic_coefficients(slab[:NUM_GEOM], origin_x[:, None], origin_y[:, None])
-    S = sigma(Q, F)                                  # [A, PIX, CHUNK]
-    raw = slab[5][:, None, :] * torch.exp(-S)
+    c = _chunk_common(slab, origin_x, origin_y, F, lane_lo, lane_hi, log_t_all)
+    L, incl, mask, in_range = c["L"], c["incl"], c["mask"], c["in_range"]
+    contrib, w = c["contrib"], c["w"]
     lane = torch.arange(slab.shape[-1], device=slab.device)
-    in_range = (lane[None, :] >= lane_lo[:, None]) & (lane[None, :] < lane_hi[:, None])
-    contrib = (S >= 0.0) & (raw >= ALPHA_MIN) & in_range[:, None, :]
-    alpha = torch.clamp(raw, max=ALPHA_MAX) * contrib
-    L = torch.log1p(-alpha)
-    incl = torch.cumsum(L, dim=-1) + log_t_all[..., None]
-    mask = (incl > LOG_T_EPS).to(L.dtype)
-    T = torch.exp(incl - L)
-    w = alpha * T * mask
     rgb = rgb + torch.einsum("can,apn->acp", slab[NUM_GEOM:], w)
     if stats is not None:
         live_before = ((incl - L) > LOG_T_EPS) & in_range[:, None, :]
         stats["pair_evals"] = stats.get("pair_evals", 0) + int(live_before.sum())
         blended = int((contrib & (mask > 0)).sum())
         stats["pair_blends"] = stats.get("pair_blends", 0) + blended
+        clamped = int((contrib & (mask > 0) & (c["raw"] > ALPHA_MAX)).sum())
+        stats["pair_clamped"] = stats.get("pair_clamped", 0) + clamped
         # a pixel that evaluates a lane evaluates every in-range lane before
         # it, so a tile reads its lanes from lo up to its last evaluated one
         last = torch.where(live_before.any(dim=1), lane, -1).amax(dim=-1)
         read = torch.clamp(last + 1 - torch.clamp(lane_lo, min=0), min=0)
         stats["pairs_read"] = stats.get("pairs_read", 0) + int(read.sum())
     return (log_t_all + L.sum(-1), log_t_out + (L * mask).sum(-1), rgb)
+
+
+def backward_chunk(slab, origin_x, origin_y, F, lane_lo, lane_hi, g_rgb, g_t,
+                   t_final, total_dot, log_t_all, wg_cum):
+    """Replay one CHUNK of A tiles front to back; per-intersection gradients.
+
+    slab, origin_x/y, F, lane_lo/hi as in `forward_chunk`; g_rgb [A, c,
+    PIX] and g_t [A, PIX] are the cotangents of the forward's rgb and
+    t_final; t_final [A, PIX]; total_dot [A, PIX] = sum_ch g_rgb * rgb
+    (the forward's colour). Carries log_t_all (over every alpha-passing
+    intersection, as the forward) and wg_cum (inclusive sum of w * gdot),
+    both [A, PIX].
+
+    Returns (g_slab [6 + c, A, CHUNK] with rows g_mx, g_my, g_cA, g_cB,
+    g_cC, g_opac, g_colours; log_t_all; wg_cum). Lanes outside [lo, hi)
+    get exact zeros.
+    """
+    c = _chunk_common(slab, origin_x, origin_y, F, lane_lo, lane_hi, log_t_all)
+    alpha, mask, T, w = c["alpha"], c["mask"], c["T"], c["w"]
+    col = slab[NUM_GEOM:]
+    gdot = torch.einsum("acp,can->apn", g_rgb, col)      # sum_ch g_rgb * col
+    wg = w * gdot
+    incl_wg = torch.cumsum(wg, dim=-1) + wg_cum[..., None]
+    suffix = total_dot[..., None] - incl_wg   # w * gdot of the later composited ones
+    one_m = 1.0 - alpha
+    ga = (T * gdot - suffix / one_m - (g_t * t_final)[..., None] / one_m) \
+        * mask * c["contrib"]
+    notclamp = (c["raw"] <= ALPHA_MAX).to(alpha.dtype)
+    g_sigma = -alpha * ga * notclamp                     # [A, PIX, CHUNK]
+    g_opac = (c["E"] * ga * notclamp).sum(dim=1)         # [A, CHUNK]
+    M = torch.einsum("kp,apn->kan", F, g_sigma)          # the six pixel moments
+    m_xx, m_yy, m_xy, m_x, m_y, m_0 = M
+    mxl = slab[0] - origin_x[:, None]
+    myl = slab[1] - origin_y[:, None]
+    cA, cB, cC = slab[2], slab[3], slab[4]
+    dx_sum = m_x - mxl * m_0                             # sum_p g_sigma * (x - mx)
+    dy_sum = m_y - myl * m_0
+    g_cA = 0.5 * (m_xx - 2.0 * mxl * m_x + mxl * mxl * m_0)
+    g_cB = m_xy - mxl * m_y - myl * m_x + mxl * myl * m_0
+    g_cC = 0.5 * (m_yy - 2.0 * myl * m_y + myl * myl * m_0)
+    g_mx = -(cA * dx_sum + cB * dy_sum)
+    g_my = -(cC * dy_sum + cB * dx_sum)
+    g_col = torch.einsum("acp,apn->can", g_rgb, w)
+    g_slab = torch.cat([torch.stack([g_mx, g_my, g_cA, g_cB, g_cC, g_opac]), g_col])
+    return g_slab, log_t_all + c["L"].sum(-1), wg_cum + wg.sum(-1)

@@ -1,4 +1,4 @@
-"""Forward rasterization API (the fused branch), forward only.
+"""Differentiable rasterization API (the fused branch).
 
 Port of `mtgs_tpu/raster/rasterize.py::rasterize` on its fused branch
 (:673-702, :791-869): projection -> tile spans -> depth sort -> pair
@@ -8,8 +8,19 @@ normalisation. The JAX package moves attributes through its sorts as
 payload operands because random gathers are slow on a TPU; here the
 sorts are `torch.sort` and the permutations are gathers.
 
-Training (the backward kernels) is a later slice: `rasterize` runs under
-`torch.no_grad()` and raises NotImplementedError if asked for gradients.
+Gradients: one `torch.autograd.Function` spans the depth sort, the
+expansion, the pair sort and the blend. Its backward is the JAX
+`_gather_fused_bwd` (:473-511): the backward blend (`blend_backward`),
+the gradient rows back to slot order, two |g_mx|, |g_my| rows appended
+(the absgrad densify signal), a per-gaussian `dense_segment_sum` keyed by
+the slot owners, and the depth permutation undone. Binning and the sorts
+are index math and run under `torch.no_grad()`, at the JAX package's
+stop-gradient points. Extras beyond gsplat's signature, as in JAX:
+
+* `tap2d`: an [N, 2] tensor added to the projected 2D means; its
+  gradient is the screen-space means2d gradient.
+* `absgrad_sink`: an [N, 2] tensor the forward ignores; its gradient is
+  the sum over tiles of |per-tile means2d gradient| (gsplat's `absgrad`).
 """
 
 from __future__ import annotations
@@ -20,10 +31,11 @@ from typing import Tuple
 import torch
 
 from mtgs_torch.raster.binning import padded_capacity, tile_spans
-from mtgs_torch.raster.blend import blend_forward
-from mtgs_torch.raster.chunk_math import CHUNK, MAX_CH
+from mtgs_torch.raster.blend import blend_backward, blend_forward
+from mtgs_torch.raster.chunk_math import CHUNK, MAX_CH, NUM_GEOM
 from mtgs_torch.raster.expand_fused import expand_fused, fused_fits, slot_bits
 from mtgs_torch.raster.projection import project_gaussians
+from mtgs_torch.raster.segment_sum import dense_segment_sum
 
 
 @dataclass(frozen=True)
@@ -57,8 +69,10 @@ def _round8(x: int) -> int:
 
 
 def _gather_fused_fwd(config: RasterizeConfig, table, packed_in, counts_in, depths):
-    """Depth sort, pair expansion and pair sort: returns (slab_t [W8, cap]
-    tile-sorted, key_s [I] sorted keys, total)."""
+    """Depth sort, pair expansion and pair sort. Returns a dict: slab_t
+    [W8, cap] tile-sorted, key_s [I] sorted keys, order [I] (the slot of
+    each sorted position), src [I] (each slot's owner in depth order),
+    perm [n] (the depth order) and total (1-element, untruncated)."""
     n, nw = table.shape
     I = config.max_intersections
     num_tiles = config.tiles_x * config.tiles_y
@@ -74,14 +88,14 @@ def _gather_fused_fwd(config: RasterizeConfig, table, packed_in, counts_in, dept
     total = csum[-1:].to(torch.int32)
     table_am = table[perm].T.contiguous()  # [nw, n] depth-sorted
 
-    key, _, attrs = expand_fused(table_am, offsets, packed, total, I,
-                           tiles_x=config.tiles_x, num_tiles=num_tiles)
+    key, src, attrs = expand_fused(table_am, offsets, packed, total, I,
+                                   tiles_x=config.tiles_x, num_tiles=num_tiles)
     # keys are unique (the slot is in the low bits): any sort is exact
     key_s, order = torch.sort(key)
     slab_t = torch.zeros((_round8(nw), padded_capacity(I)), dtype=torch.float32,
                          device=table.device)
     slab_t[:, :I] = attrs[:, order]
-    return slab_t, key_s, total
+    return dict(slab_t=slab_t, key_s=key_s, order=order, src=src, perm=perm, total=total)
 
 
 def _tile_ranges(key_s, num_tiles: int, max_intersections: int):
@@ -99,33 +113,69 @@ def _tile_ranges(key_s, num_tiles: int, max_intersections: int):
     return tile_offsets, tile_heads, tcounts, tile_nchunks.to(torch.int32)
 
 
-def _check_no_grad(*tensors):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "mtgs_torch.rasterize is forward-only: gradients (the backward "
-            "blend and segment-sum kernels) come with the training slice")
+class _FusedRasterize(torch.autograd.Function):
+    """table [n, 6 + c_total] (means2d, conic, opacity, colours) -> the
+    tile-major blend (rgb_tiles [T, c_total, PIX], t_final [T, PIX]) and
+    the pair count; differentiable in `table` and `sink` (absgrad)."""
+
+    @staticmethod
+    def forward(ctx, config, table, packed_in, counts_in, depths, sink):
+        c_total = table.shape[1] - NUM_GEOM
+        num_tiles = config.tiles_x * config.tiles_y
+        g = _gather_fused_fwd(config, table, packed_in, counts_in, depths)
+        ranges = _tile_ranges(g["key_s"], num_tiles, config.max_intersections)
+        rgb_tiles, t_final = blend_forward(
+            g["slab_t"], *ranges, tile_size=config.tile_size, tiles_x=config.tiles_x,
+            c_total=c_total, tile_base=0)
+        ctx.config = config
+        ctx.save_for_backward(g["key_s"], g["order"], g["src"], g["perm"], g["slab_t"],
+                              *ranges, rgb_tiles, t_final, g["total"])
+        ctx.mark_non_differentiable(g["total"])
+        return rgb_tiles, t_final, g["total"]
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_t, _):
+        config = ctx.config
+        key_s, order, src, perm, slab_t, *rest = ctx.saved_tensors
+        ranges, (rgb_tiles, t_final, total) = rest[:4], rest[4:]
+        n = perm.shape[0]
+        c_total = rgb_tiles.shape[1]
+        nw = NUM_GEOM + c_total
+        I = config.max_intersections
+        g_slab = blend_backward(
+            slab_t, *ranges, rgb_tiles, t_final, g_rgb.contiguous(), g_t.contiguous(),
+            tile_size=config.tile_size, tiles_x=config.tiles_x, c_total=c_total)
+        # back to depth-slot order (`order` is a permutation of the I slots,
+        # so every column is written), plus the absgrad rows |g_mx|, |g_my|
+        rows = torch.empty((nw + 2, I), dtype=torch.float32, device=slab_t.device)
+        rows[:nw, order] = g_slab[:nw, :I]
+        rows[nw:nw + 2] = rows[:2].abs()
+        # dead slots (slot >= total) hold zero rows: key them to the sentinel
+        slot = torch.arange(I, dtype=torch.int32, device=src.device)
+        src = torch.where(slot < total, src, torch.full_like(src, n))
+        sums = dense_segment_sum(rows, src, n)[:nw + 2, :n]
+        # depth order -> input order
+        out = torch.empty((n, nw + 2), dtype=torch.float32, device=sums.device)
+        out[perm] = sums.T
+        return None, out[:, :nw], None, None, None, out[:, nw:]
 
 
 def rasterize(means, quats, scales, opacities, colors, viewmat, K,
-              config: RasterizeConfig) -> Tuple[torch.Tensor, torch.Tensor, dict]:
-    """Render one view of a set of 3D gaussians (forward only).
+              config: RasterizeConfig, *, tap2d=None,
+              absgrad_sink=None) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """Render one view of a set of 3D gaussians.
 
     Args: means [N, 3], quats [N, 4] wxyz, scales [N, 3] linear,
     opacities [N] in [0, 1], colors [N, C] (C <= 7, SH already evaluated),
     viewmat [4, 4] cv world-to-camera, K [3, 3]; all on one device.
+    tap2d / absgrad_sink: optional [N, 2] gradient taps (module docstring).
 
     Returns render [H, W, C(+1 with depth)] (ED mode's last channel is
     alpha-normalised expected depth), alpha [H, W, 1], and info with
-    means2d, radii, depths, compensations and n_intersections (a 1-element
-    int32 tensor; above config.max_intersections the farthest pairs were
-    dropped).
+    means2d (tapped), radii, depths, compensations (no gradient) and
+    n_intersections (a 1-element int32 tensor; above
+    config.max_intersections the farthest pairs were dropped).
     """
-    _check_no_grad(means, quats, scales, opacities, colors, viewmat, K)
-    with torch.no_grad():
-        return _rasterize(means, quats, scales, opacities, colors, viewmat, K, config)
-
-
-def _rasterize(means, quats, scales, opacities, colors, viewmat, K, config):
     N = means.shape[0]
     C = colors.shape[-1]
     if C + int(config.with_depth) > MAX_CH:
@@ -142,30 +192,29 @@ def _rasterize(means, quats, scales, opacities, colors, viewmat, K, config):
         near_plane=config.near_plane, far_plane=config.far_plane,
         antialiased=(config.rasterize_mode == "antialiased"),
     )
+    means2d = proj.means2d if tap2d is None else proj.means2d + tap2d
     op_eff = opacities * proj.compensations
     cols = colors
     if config.with_depth:
         cols = torch.cat([cols, proj.depths[:, None]], dim=-1)
     c_total = cols.shape[-1]
 
-    # zero-opacity rows (gated-out nodes, padded capacity) never contribute
-    live = proj.valid & (op_eff > 0)
-    table = torch.cat([proj.means2d, proj.conics, op_eff[:, None], cols], dim=-1)
-    packed_in, counts_in = tile_spans(
-        proj.means2d, proj.radii, live, width=config.width, height=config.height,
-        tile_size=config.tile_size, conics=proj.conics, op_eff=op_eff,
-    )
-    slab_t, key_s, n_isect = _gather_fused_fwd(
-        config, table, packed_in, counts_in, proj.depths)
-    ranges = _tile_ranges(key_s, num_tiles, config.max_intersections)
-    rgb_tiles, t_final = blend_forward(
-        slab_t, *ranges, tile_size=config.tile_size, tiles_x=config.tiles_x,
-        c_total=c_total, tile_base=0)
+    with torch.no_grad():
+        # zero-opacity rows (gated-out nodes, padded capacity) never contribute
+        live = proj.valid & (op_eff > 0)
+        packed_in, counts_in = tile_spans(
+            means2d, proj.radii, live, width=config.width, height=config.height,
+            tile_size=config.tile_size, conics=proj.conics, op_eff=op_eff,
+        )
+    table = torch.cat([means2d, proj.conics, op_eff[:, None], cols], dim=-1)
+    sink = absgrad_sink if absgrad_sink is not None else table.new_zeros((N, 2))
+    rgb_tiles, t_final, n_isect = _FusedRasterize.apply(
+        config, table, packed_in, counts_in, proj.depths.detach(), sink)
 
     render, alpha = _assemble_image(rgb_tiles, t_final, config, c_total)
     info = dict(
-        means2d=proj.means2d, radii=proj.radii, depths=proj.depths,
-        n_intersections=n_isect, compensations=proj.compensations,
+        means2d=means2d, radii=proj.radii, depths=proj.depths,
+        n_intersections=n_isect, compensations=proj.compensations.detach(),
     )
     return render, alpha, info
 

@@ -1,2 +1,2 @@
-"""Render-path pieces of the trainer: config, batch, render_view, the SSIM
-and normal helpers the eval path uses."""
+"""Training: render_view, losses, per-group Adam, density control,
+camera-pose optimisation, the training step and the host loop."""

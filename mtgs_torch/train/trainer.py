@@ -1,14 +1,26 @@
-"""The render half of `mtgs_tpu/train/trainer.py`: `TrainerConfig` (its
-render fields), `Batch`, and `render_view` with training=False — the
-forward every serving caller (eval, trajectory render, viewer) goes
-through: scene-graph collect -> normals -> rasterize -> background ->
-exposure."""
+"""The training engine; port of `mtgs_tpu/train/trainer.py`.
+
+* `render_view` — the full forward of one camera: camera-opt ->
+  scene-graph collect -> normals -> rasterize -> background -> exposure.
+  With training=False it is the serving forward (no autograd graph).
+* `loss_and_grads` / `train_step` — one training step: losses,
+  parameter gradients and the absgrad densify signal from one backward
+  pass, the non-finite-gradient guard, Adam, densify statistics, metrics.
+  Nothing in a step waits on the device: the guard and the metrics stay
+  device tensors.
+* `Trainer` — the host loop: steps, and on the JAX package's schedule the
+  refine pass (node capacity grown to the counted candidates) and the
+  opacity reset, with `max_intersections` grown past `isect_grow_frac`.
+
+The JAX package's re-jit, speculative compile, resolution ladder, mesh
+and deformable machinery has no counterpart: torch keeps shapes dynamic.
+"""
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Iterator, List, Optional
 
 import torch
 
@@ -16,17 +28,22 @@ from mtgs_torch import resolve_device
 from mtgs_torch.core.camera import camera_to_gsplat_viewmat
 from mtgs_torch.core.quat import quat_to_rotmat
 from mtgs_torch.models.appearance import apply_exposure
+from mtgs_torch.models.gaussians import NodeAux, node_capacity
 from mtgs_torch.models.scene_graph import (
-    SceneAux, SceneConfig, SceneParams, ViewInputs, collect_gaussians,
+    SceneAux, SceneConfig, SceneParams, ViewInputs, collect_gaussians, node_segments,
 )
 from mtgs_torch.raster import RasterizeConfig, rasterize
-from mtgs_torch.train.control import ControlConfig, sh_degree_mask
-from mtgs_torch.train.losses import gaussian_camera_normals
+from mtgs_torch.train import control as ctrl
+from mtgs_torch.train import losses as loss_lib
+from mtgs_torch.train.camera_opt import apply_camera_opt, camera_opt_penalty
+from mtgs_torch.train.optim import (
+    AdamState, OptimConfig, adam_init, adam_update, default_groups, named_leaves,
+)
 
 
 @dataclass(frozen=True)
 class TrainerConfig:
-    """Render-relevant fields of the JAX TrainerConfig (same defaults)."""
+    """The JAX TrainerConfig's fields that the port runs (same defaults)."""
 
     width: int = 960
     height: int = 540
@@ -36,8 +53,31 @@ class TrainerConfig:
     max_steps: int = 30001
     predict_normals: bool = True
     background_color: float = 0.0
-    control: ControlConfig = field(default_factory=ControlConfig)
+    # capacity growth: a node grows to max(needed, cap * grow_factor),
+    # rounded to grow_granule; the intersection buffer grows by
+    # isect_grow_factor once n_intersections passes isect_grow_frac of it
+    auto_grow: bool = True
+    grow_granule: int = 4096
+    grow_factor: float = 1.5
+    isect_grow_frac: float = 0.85
+    isect_grow_factor: float = 1.5
+    loss: loss_lib.LossConfig = field(default_factory=loss_lib.LossConfig)
+    control: ctrl.ControlConfig = field(default_factory=ctrl.ControlConfig)
+    # per-node control overrides (None: inherit `control`; the skybox
+    # then gets no far-background cull exemption)
+    skybox_control: Optional[ctrl.ControlConfig] = None
+    instances_control: Optional[ctrl.ControlConfig] = None
     scene: SceneConfig = field(default_factory=SceneConfig)
+
+    def node_control(self, node: str) -> ctrl.ControlConfig:
+        """The resolved ControlConfig of a node kind."""
+        if node == "skybox":
+            if self.skybox_control is not None:
+                return self.skybox_control
+            return dataclasses.replace(self.control, far_dist=1e8, far_scale_factor=1.0)
+        if node == "instances":
+            return self.instances_control or self.control
+        return self.control
 
     def raster_config(self) -> RasterizeConfig:
         return RasterizeConfig(
@@ -63,7 +103,16 @@ class Batch:
     travel_index: int
     frame_idx: int
     timestamp: float
-    lidar_depth: Optional[torch.Tensor] = None   # [H, W, 1]
+    lidar_depth: Optional[torch.Tensor] = None    # [H, W, 1]
+    pseudo_depth: Optional[torch.Tensor] = None   # [H, W, 1]
+
+
+@dataclass
+class TrainState:
+    params: SceneParams
+    adam: AdamState
+    densify: Dict[str, ctrl.DensifyState]
+    step: int = 0
 
 
 def _on(x, dev) -> torch.Tensor:
@@ -84,20 +133,27 @@ def render_view(
     step: int,
     *,
     training: bool = False,
+    absgrad_sink: Optional[torch.Tensor] = None,
     travel_mode: Optional[str] = None,
     apply_cam_opt: Optional[bool] = None,
     device="cuda",
 ) -> Dict[str, torch.Tensor]:
-    """Full forward pass for one camera (serving path, training=False)."""
+    """Full forward pass for one camera. training=False is the serving
+    forward, run without autograd; apply_cam_opt (default: training)
+    applies the image's trained pose delta."""
     dev = resolve_device(device)
-    if training:
-        raise NotImplementedError("render_view(training=True) comes with the "
-                                  "training slice of the port")
-    if apply_cam_opt:
-        raise NotImplementedError("camera-pose optimisation is not ported yet")
     _check_scene_device(params, dev)
+    with torch.set_grad_enabled(training and torch.is_grad_enabled()):
+        return _render_view(params, aux, cfg, batch, step, training, absgrad_sink,
+                            travel_mode, apply_cam_opt, dev)
+
+
+def _render_view(params, aux, cfg, batch, step, training, absgrad_sink,
+                 travel_mode, apply_cam_opt, dev):
     c2w = _on(batch.c2w, dev)
     K = _on(batch.K, dev)
+    if training if apply_cam_opt is None else apply_cam_opt:
+        c2w = apply_camera_opt(c2w, params.camera_opt[int(batch.image_idx)])
     scene_cfg = cfg.scene
     if travel_mode is not None:
         scene_cfg = dataclasses.replace(scene_cfg, travel_mode=travel_mode)
@@ -107,21 +163,21 @@ def render_view(
         frame_idx=int(batch.frame_idx),
         timestamp=_on(batch.timestamp, dev),
         cam_pos=c2w[:3, 3],
-        sh_mask=sh_degree_mask(step, cfg.control, dev),
+        sh_mask=ctrl.sh_degree_mask(step, cfg.control, dev),
         image_idx=int(batch.image_idx),
     )
     g = collect_gaussians(params, aux, scene_cfg, view)
 
     colors = g["colors"]
     if cfg.predict_normals:
-        normals = gaussian_camera_normals(
+        normals = loss_lib.gaussian_camera_normals(
             g["scales"], quat_to_rotmat(g["quats"]), g["means"], c2w[:3, 3], c2w[:3, :3])
         colors = torch.cat([colors, normals], dim=-1)
 
     viewmat = camera_to_gsplat_viewmat(c2w)
     render, alpha, info = rasterize(
         g["means"], g["quats"], g["scales"], g["opacities"], colors,
-        viewmat, K, cfg.raster_config())
+        viewmat, K, cfg.raster_config(), absgrad_sink=absgrad_sink)
 
     bg = torch.full((3,), cfg.background_color, dtype=render.dtype, device=dev)
     rgb = torch.clamp(render[..., :3] + (1.0 - alpha) * bg, 0.0, 1.0)
@@ -129,8 +185,9 @@ def render_view(
 
     depth = render[..., -1:]
     # threshold 1e-6 (not 0): below it the ED normalisation divided by the
-    # 1e-10 clamp, not alpha; such pixels are treated like empty ones
-    depth = torch.where(alpha > 1e-6, depth, depth.max())
+    # 1e-10 clamp, not alpha; such pixels take the (gradient-free) largest
+    # depth, like empty ones
+    depth = torch.where(alpha > 1e-6, depth, depth.detach().max())
 
     out = dict(
         rgb=rgb, rgb_appearance=rgb_appearance, depth=depth, accumulation=alpha,
@@ -144,3 +201,350 @@ def render_view(
         n = n / torch.sqrt(torch.sum(n * n, dim=-1, keepdim=True) + 1e-12)
         out["normal"] = (n + 1.0) / 2.0
     return out
+
+
+def _scene_losses(params: SceneParams, aux: SceneAux, out, cfg: TrainerConfig,
+                  step: int) -> Dict[str, torch.Tensor]:
+    """Parameter-space regularisers and the camera-opt penalty."""
+    losses: Dict[str, torch.Tensor] = {}
+    lcfg = cfg.loss
+    g = out["gaussians"]
+    alive = (g["opacities"] > 0).to(g["scales"].dtype)
+    if lcfg.two_d_gaussians:
+        losses["two_d_reg"] = loss_lib.two_d_reg(g["scales"], alive)
+    if lcfg.sharp_shape_reg_lambda > 0:
+        # applied every sharp_shape_reg_step_interval steps only
+        every = float(step % lcfg.sharp_shape_reg_step_interval == 0)
+        losses["sharp_shape"] = every * (lcfg.sharp_shape_reg_lambda * loss_lib.sharp_shape_reg(
+            g["scales"], alive, lcfg.sharp_shape_max_ratio, lcfg.two_d_gaussians))
+    if lcfg.oob_lambda > 0 and params.instances is not None:
+        losses["oob"] = lcfg.oob_lambda * loss_lib.oob_loss(
+            params.instances.node.means, params.instances.node.opacities,
+            aux.instances.alive, aux.instances.sizes, lcfg.oob_tolerance)
+    if lcfg.adapter_lambda > 0:
+        total = params.background.features_adapters.abs().sum()
+        if params.skybox is not None:
+            total = total + params.skybox.features_adapters.abs().sum()
+        losses["adapter"] = lcfg.adapter_lambda * total
+    losses["camera_opt"] = camera_opt_penalty(
+        params.camera_opt, lcfg.camera_opt_trans_penalty, lcfg.camera_opt_rot_penalty)
+    return losses
+
+
+def _total_capacity(params: SceneParams) -> int:
+    return node_segments(params)[-1][2]
+
+
+def loss_and_grads(params: SceneParams, aux: SceneAux, cfg: TrainerConfig, batch: Batch,
+                   step: int, *, device="cuda"):
+    """Loss, parameter gradients and the absgrad densify signal of one
+    view, from one backward pass: the absgrad sink is one more input of
+    the same `torch.autograd.grad`. Marks every parameter leaf as
+    requiring grad. Returns (total, losses, out, sink_grad [N, 2], grads:
+    {leaf path: gradient}), all detached."""
+    dev = resolve_device(device)
+    leaves = list(named_leaves(params))
+    for _, p in leaves:
+        p.requires_grad_(True)
+    sink = torch.zeros((_total_capacity(params), 2), dtype=torch.float32, device=dev,
+                       requires_grad=True)
+    f32 = lambda x: None if x is None else _on(x, dev)
+    with torch.enable_grad():
+        out = render_view(params, aux, cfg, batch, step, training=True,
+                          absgrad_sink=sink, device=dev)
+        losses = loss_lib.compute_losses(
+            cfg.loss, gt_img=f32(batch.image), pred_img=out["rgb"],
+            pred_img_appearance=out["rgb_appearance"], mask=f32(batch.mask),
+            pred_depth=out["depth"], gt_lidar_depth=f32(batch.lidar_depth),
+            gt_pseudo_depth=f32(batch.pseudo_depth), pred_normal=out.get("normal"),
+            K=f32(batch.K))
+        losses.update(_scene_losses(params, aux, out, cfg, step))
+        total = sum(losses.values())
+        gs = torch.autograd.grad(total, [p for _, p in leaves] + [sink], allow_unused=True)
+    grads = {path: torch.zeros_like(p) if gr is None else gr
+             for (path, p), gr in zip(leaves, gs[:-1])}
+    sink_grad = torch.zeros_like(sink) if gs[-1] is None else gs[-1]
+    out = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in out.items()}
+    out["gaussians"] = {k: v.detach() for k, v in out["gaussians"].items()}
+    return (total.detach(), {k: v.detach() for k, v in losses.items()}, out, sink_grad,
+            grads)
+
+
+def _accumulate_all(params: SceneParams, densify: Dict[str, ctrl.DensifyState], sink_grad,
+                    radii, opac, wh, comps=None) -> Dict[str, ctrl.DensifyState]:
+    """Route each node's slice of absgrad / radii / compensations into its
+    densify statistics; stacked instances are one batched update."""
+    new = dict(densify)
+    segs = node_segments(params)
+    for name, s, e in segs:
+        if name in ("background", "skybox"):
+            new[name] = ctrl.accumulate_stats(
+                densify[name], sink_grad[s:e], radii[s:e], opac[s:e], wh,
+                None if comps is None else comps[s:e])
+    inst = [(s, e) for name, s, e in segs if name.startswith("instance_")]
+    if inst:
+        s0, e1 = inst[0][0], inst[-1][1]
+        n_inst = len(inst)
+        cap = (e1 - s0) // n_inst
+        new["instances"] = ctrl.accumulate_stats(
+            densify["instances"], sink_grad[s0:e1].reshape(n_inst, cap, 2),
+            radii[s0:e1].reshape(n_inst, cap), opac[s0:e1].reshape(n_inst, cap), wh,
+            None if comps is None else comps[s0:e1].reshape(n_inst, cap))
+    return new
+
+
+def _make_densify(params: SceneParams) -> Dict[str, ctrl.DensifyState]:
+    dev = params.background.means.device
+    densify = {"background": ctrl.DensifyState.zeros(params.background.capacity, dev)}
+    if params.skybox is not None:
+        densify["skybox"] = ctrl.DensifyState.zeros(params.skybox.capacity, dev)
+    if params.instances is not None:
+        densify["instances"] = ctrl.DensifyState.zeros(
+            tuple(params.instances.node.means.shape[:2]), dev)
+    return densify
+
+
+def init_train_state(params: SceneParams) -> TrainState:
+    return TrainState(params=params, adam=adam_init(params), densify=_make_densify(params))
+
+
+def train_step(state: TrainState, aux: SceneAux, cfg: TrainerConfig, batch: Batch,
+               optim_config: OptimConfig, *, device="cuda") -> Dict[str, torch.Tensor]:
+    """One training step on one view, updating `state` in place (params,
+    Adam moments and count, densify statistics, step). Returns the
+    metrics as device tensors."""
+    dev = resolve_device(device)
+    total, losses, out, sink_grad, grads = loss_and_grads(
+        state.params, aux, cfg, batch, state.step, device=dev)
+    # gradient-skip guard: a non-finite gradient would be smeared over
+    # every parameter by one Adam update; such a step leaves params and
+    # optimizer state as they were and is counted in the metrics
+    finite = torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
+    sink_grad = torch.where(finite, sink_grad, 0.0)
+    adam_update(state.params, grads, state.adam, optim_config, finite)
+    state.densify = _accumulate_all(
+        state.params, state.densify, sink_grad, out["radii"], out["gaussians"]["opacities"],
+        (cfg.width, cfg.height), comps=out["compensations"])
+
+    metrics = dict(losses)
+    mse = loss_lib.masked_mean((_on(batch.image, dev) - out["rgb_appearance"]) ** 2,
+                               _on(batch.mask, dev))
+    metrics["psnr"] = -10.0 * torch.log10(torch.clamp(mse, min=1e-10))
+    metrics["total_loss"] = total
+    metrics["nonfinite_grad_step"] = (~finite).to(torch.float32)
+    metrics["n_intersections"] = out["n_intersections"].reshape(())
+    count = aux.background.alive.sum()
+    if aux.skybox is not None:
+        count = count + aux.skybox.alive.sum()
+    if aux.instances is not None:
+        count = count + aux.instances.alive.sum()
+    metrics["gaussian_count"] = count
+    state.step += 1
+    return metrics
+
+
+def _node_slice(node, i):
+    return dataclasses.replace(node, **{
+        f.name: None if getattr(node, f.name) is None else getattr(node, f.name)[i]
+        for f in dataclasses.fields(node)})
+
+
+def _node_stack(nodes):
+    first = nodes[0]
+    return dataclasses.replace(first, **{
+        f.name: None if getattr(first, f.name) is None
+        else torch.stack([getattr(n, f.name) for n in nodes])
+        for f in dataclasses.fields(first)})
+
+
+class Trainer:
+    """Host-side control loop (ref `CustomTrainer.train`)."""
+
+    def __init__(self, cfg: TrainerConfig, params: SceneParams, aux: SceneAux,
+                 data: Iterator[Batch], optim_config: Optional[OptimConfig] = None,
+                 seed: int = 0, device="cuda"):
+        self.device = resolve_device(device)
+        _check_scene_device(params, self.device)
+        self.cfg = cfg
+        self.aux = aux
+        self.data = data
+        self.optim_config = optim_config or OptimConfig(groups=default_groups(cfg.max_steps))
+        self.state = init_train_state(params)
+        # the split/dup noise of refine passes
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.growth_events: List[dict] = []
+        self.refine_overflow = 0
+        self.refine_events: List[dict] = []
+        self.reset_steps: List[int] = []
+
+    # ------------------------------------------------------------- refine
+
+    def _nodes(self):
+        """(kind, params node, aux node, densify) of every node kind;
+        stacked instances as one [I, cap] node."""
+        p, a, d = self.state.params, self.aux, self.state.densify
+        nodes = [("background", p.background, a.background, d["background"])]
+        if p.skybox is not None:
+            nodes.append(("skybox", p.skybox, a.skybox, d["skybox"]))
+        if p.instances is not None:
+            nodes.append(("instances", p.instances.node,
+                          NodeAux(alive=a.instances.alive, num_alive=a.instances.num_alive),
+                          d["instances"]))
+        return nodes
+
+    @torch.no_grad()
+    def _plan_growth(self, flags) -> Dict[str, int]:
+        """Output capacity per node kind: the counted refine candidates,
+        grown by grow_factor and rounded to grow_granule where they exceed
+        the capacity (one host sync per refine)."""
+        do_densify, do_cull_big, use_screen = flags
+        kw = dict(do_densify=do_densify, do_cull_big=do_cull_big, use_screen_size=use_screen)
+        caps = {}
+        for kind, node, aux, dstate in self._nodes():
+            cc = self.cfg.node_control(kind)
+            if kind == "instances":
+                n_inst = node.means.shape[0]
+                needed = max(int(ctrl.count_refine_candidates(
+                    _node_slice(node, i), _node_slice(aux, i), _node_slice(dstate, i), cc,
+                    **kw)) for i in range(n_inst))
+                cap = node.means.shape[1]
+            else:
+                needed = int(ctrl.count_refine_candidates(node, aux, dstate, cc, **kw))
+                cap = node.capacity
+            new = cap
+            if self.cfg.auto_grow and needed > cap:
+                new = node_capacity(max(needed, int(cap * self.cfg.grow_factor)),
+                                    self.cfg.grow_granule)
+                self.growth_events.append(dict(step=self.state.step, node=kind, old=cap, new=new))
+            caps[kind] = new
+        return caps
+
+    @torch.no_grad()
+    def refine(self, flags) -> dict:
+        """One refine pass over every node (split / dup / cull), growing
+        nodes to the planned capacities; Adam moments follow the rows."""
+        do_densify, do_cull_big, use_screen = flags
+        out_caps = self._plan_growth(flags)
+        st = self.state
+        mu, nu = st.adam.mu, st.adam.nu
+        info = dict(step=st.step, overflow=0, n_split=0, n_dup=0, n_cull=0)
+        kw = dict(do_densify=do_densify, do_cull_big=do_cull_big, use_screen_size=use_screen)
+
+        def run(kind, node, aux, mu_n, nu_n, dstate):
+            eps = torch.randn((out_caps[kind], 3), generator=self.generator,
+                              device=self.device, dtype=node.means.dtype)
+            r = ctrl.refine_node(eps, node, aux, mu_n, nu_n, dstate,
+                                 self.cfg.node_control(kind), out_cap=out_caps[kind], **kw)
+            for k in ("overflow", "n_split", "n_dup", "n_cull"):
+                info[k] += int(getattr(r, k))
+            return r
+
+        params, aux = st.params, self.aux
+        r = run("background", params.background, aux.background, mu.background,
+                nu.background, st.densify["background"])
+        params = dataclasses.replace(params, background=r.params)
+        mu = dataclasses.replace(mu, background=r.mu)
+        nu = dataclasses.replace(nu, background=r.nu)
+        aux = dataclasses.replace(aux, background=r.aux)
+        st.densify["background"] = r.state
+        if params.skybox is not None:
+            r = run("skybox", params.skybox, aux.skybox, mu.skybox, nu.skybox,
+                    st.densify["skybox"])
+            params = dataclasses.replace(params, skybox=r.params)
+            mu = dataclasses.replace(mu, skybox=r.mu)
+            nu = dataclasses.replace(nu, skybox=r.nu)
+            aux = dataclasses.replace(aux, skybox=r.aux)
+            st.densify["skybox"] = r.state
+        if params.instances is not None:
+            ia = aux.instances
+            outs = [run("instances", _node_slice(params.instances.node, i),
+                        NodeAux(alive=ia.alive[i], num_alive=ia.num_alive[i]),
+                        _node_slice(mu.instances.node, i), _node_slice(nu.instances.node, i),
+                        _node_slice(st.densify["instances"], i))
+                    for i in range(params.instances.node.means.shape[0])]
+            params = dataclasses.replace(params, instances=dataclasses.replace(
+                params.instances, node=_node_stack([o.params for o in outs])))
+            mu = dataclasses.replace(mu, instances=dataclasses.replace(
+                mu.instances, node=_node_stack([o.mu for o in outs])))
+            nu = dataclasses.replace(nu, instances=dataclasses.replace(
+                nu.instances, node=_node_stack([o.nu for o in outs])))
+            aux = dataclasses.replace(aux, instances=dataclasses.replace(
+                ia, alive=torch.stack([o.aux.alive for o in outs]),
+                num_alive=torch.stack([o.aux.num_alive for o in outs])))
+            st.densify["instances"] = _node_stack([o.state for o in outs])
+        st.params = params
+        st.adam = dataclasses.replace(st.adam, mu=mu, nu=nu)
+        self.aux = aux
+        return info
+
+    @torch.no_grad()
+    def reset_opacities(self) -> None:
+        """The periodic opacity reset of every node (with its Adam
+        opacity moments zeroed)."""
+        st = self.state
+        cc = self.cfg.control
+        params, mu, nu = st.params, st.adam.mu, st.adam.nu
+        for kind in ("background", "skybox"):
+            node = getattr(params, kind)
+            if node is None:
+                continue
+            p, m, v = ctrl.reset_opacities(node, getattr(mu, kind), getattr(nu, kind), cc,
+                                           st.densify[kind].last_comp)
+            params = dataclasses.replace(params, **{kind: p})
+            mu = dataclasses.replace(mu, **{kind: m})
+            nu = dataclasses.replace(nu, **{kind: v})
+        if params.instances is not None:
+            p, m, v = ctrl.reset_opacities(params.instances.node, mu.instances.node,
+                                           nu.instances.node, cc,
+                                           st.densify["instances"].last_comp)
+            params = dataclasses.replace(params, instances=dataclasses.replace(
+                params.instances, node=p))
+            mu = dataclasses.replace(mu, instances=dataclasses.replace(mu.instances, node=m))
+            nu = dataclasses.replace(nu, instances=dataclasses.replace(nu.instances, node=v))
+        st.params = params
+        st.adam = dataclasses.replace(st.adam, mu=mu, nu=nu)
+
+    # --------------------------------------------------------------- loop
+
+    def step(self, batch: Batch) -> Dict[str, torch.Tensor]:
+        return train_step(self.state, self.aux, self.cfg, batch, self.optim_config,
+                          device=self.device)
+
+    def train(self, num_steps: int, log_every: int = 100, callback=None):
+        """Run `num_steps` steps; refine and reset on the reference's
+        schedule. Returns the per-step metrics (device tensors)."""
+        cc = self.cfg.control
+        history = []
+        for i in range(num_steps):
+            step = self.state.step
+            metrics = self.step(next(self.data))
+            sref = step + 1
+            if sref > cc.densify_from_iter and sref % cc.refine_every == 0:
+                do_densify = sref < cc.stop_split_at
+                do_cull_big = sref > cc.refine_every * cc.reset_alpha_every
+                use_screen = sref < cc.stop_screen_size_at
+                if do_densify or cc.continue_cull_post_densification:
+                    info = self.refine((do_densify, do_cull_big, use_screen))
+                    self.refine_events.append(info)
+                    if info["overflow"] > 0:
+                        self.refine_overflow += info["overflow"]
+                    # intersection-buffer growth, checked at the refine cadence
+                    # (every step would cost a host sync)
+                    n_isect = int(metrics["n_intersections"])
+                    if (self.cfg.auto_grow
+                            and n_isect > self.cfg.isect_grow_frac * self.cfg.max_intersections):
+                        new = int(self.cfg.max_intersections * self.cfg.isect_grow_factor)
+                        new = ((new + 511) // 512) * 512
+                        self.growth_events.append(dict(
+                            step=sref, node="max_intersections",
+                            old=self.cfg.max_intersections, new=new))
+                        self.cfg = self.cfg.replace(max_intersections=new)
+                reset_interval = cc.reset_alpha_every * cc.refine_every
+                if sref < cc.stop_split_at and sref % reset_interval == cc.refine_every:
+                    self.reset_opacities()
+                    self.reset_steps.append(sref)
+            if callback is not None and (step % log_every == 0 or i == num_steps - 1):
+                callback(step, {k: float(v) for k, v in metrics.items()})
+            history.append(metrics)
+        return history

@@ -64,12 +64,13 @@ def test_blend_plain_matches_pallas(tile_size, c_total, tiles_x, tiles_y):
 
 def test_blend_plain_stats_count_the_early_exit():
     """Flat gaussians (zero conic, so sigma = 0 at every pixel): tile 0
-    has 300 at alpha 0.999, so every pixel stops at its second (the
-    terminator, evaluated but not composited); tile 1 has 50 at alpha
-    0.01 across a chunk boundary, all evaluated and composited."""
+    has 300 at opacity 1, alpha clamped to 0.999, so every pixel stops at
+    its second (the terminator, evaluated but not composited); tile 1 has
+    50 at alpha 0.01 across a chunk boundary, all evaluated and
+    composited."""
     c_total, P = 3, 16 * 16
     slab = np.zeros((6 + c_total, 640), np.float32)
-    slab[5, 5:305] = 0.999
+    slab[5, 5:305] = 1.0
     slab[5, 504:554] = 0.01
     slab[6:] = 0.5
     ranges = [np.array(v, np.int32) for v in ([0, 384], [5, 120], [300, 50], [3, 2])]
@@ -78,7 +79,7 @@ def test_blend_plain_stats_count_the_early_exit():
         torch.from_numpy(slab), *(torch.from_numpy(r) for r in ranges),
         tile_size=16, tiles_x=2, c_total=c_total, stats=stats)
     assert stats == dict(pair_evals=(2 + 50) * P, pair_blends=(1 + 50) * P,
-                         pairs_read=2 + 50)
+                         pair_clamped=P, pairs_read=2 + 50)
     np.testing.assert_allclose(t_final[0].numpy(), 1e-3, rtol=1e-4)
     np.testing.assert_allclose(t_final[1].numpy(), 0.99 ** 50, rtol=1e-4)
 

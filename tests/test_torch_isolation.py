@@ -82,6 +82,8 @@ def test_entry_points_raise_without_a_card(no_card):
         pipeline.evaluate_scene(params, aux, cfg, [_batch()])
     with pytest.raises(RuntimeError, match="cuda"):
         mtgs_torch.resolve_device()
+    with pytest.raises(RuntimeError, match="cuda"):
+        trainer.Trainer(cfg, params, aux, iter([_batch()]))
     # asked for explicitly, the CPU runs
     out = trainer.render_view(params, aux, cfg, _batch(), 0, device="cpu")
     assert out["rgb"].shape == (16, 32, 3) and float(out["accumulation"].max()) > 0
@@ -90,12 +92,15 @@ def test_entry_points_raise_without_a_card(no_card):
 
 
 def test_forward_only_and_precision_pins():
+    """TF32 stays off; the serving forward (training=False) builds no
+    autograd graph even for parameters that require grad, while the
+    training forward does."""
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
     params, aux = _tiny_scene()
     params.background.means.requires_grad_(True)
     cfg = configs.mtgs_config(32, 16).replace(max_intersections=1 << 12)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        trainer.render_view(params, aux, cfg, _batch(), 0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        trainer.render_view(params, aux, cfg, _batch(), 0, training=True, device="cpu")
+    out = trainer.render_view(params, aux, cfg, _batch(), 0, device="cpu")
+    assert not out["rgb"].requires_grad and not out["depth"].requires_grad
+    out = trainer.render_view(params, aux, cfg, _batch(), 0, training=True, device="cpu")
+    assert out["rgb"].requires_grad and out["depth"].requires_grad

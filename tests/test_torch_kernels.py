@@ -16,12 +16,16 @@ import torch
 
 from mtgs_torch.raster import cuda_build
 from mtgs_torch.raster.binning import padded_capacity
-from mtgs_torch.raster.blend import blend_forward, blend_forward_plain
+from mtgs_torch.raster.blend import (
+    blend_backward, blend_backward_plain, blend_forward, blend_forward_plain,
+)
 from mtgs_torch.raster.chunk_math import CHUNK, NUM_GEOM
 from mtgs_torch.raster.expand_fused import expand_fused, expand_fused_plain
+from mtgs_torch.raster.segment_sum import dense_segment_sum, dense_segment_sum_plain
 
 TOL = 1e-4       # blend: f32 rounding of the same formulation
 FLIP_TOL = 2e-3  # blend: a pixel where a cut-off flips (golden tolerance)
+GRAD_TOL = 2e-4  # blend backward: each gradient row's error over its largest |value|
 
 
 def make_expand_inputs(seed, *, n_live, n_dead, nw, tiles_x, tiles_y):
@@ -167,3 +171,71 @@ def test_blend_kernel_matches_plain(cuda, tile_size, c_total, tiles_x, tiles_y,
     want = blend_forward_plain(*args, **kw)
     assert_blend_close([g.cpu() for g in got], [w.cpu() for w in want],
                        f"tile{tile_size}/c{c_total}")
+
+
+def row_errors(got, want):
+    """Each row's max |error| over its largest |value| (0 for an all-zero
+    row that the kernel also left zero)."""
+    err = (got - want).abs().amax(dim=1)
+    scale = want.abs().amax(dim=1)
+    return torch.where(scale > 0, err / torch.clamp(scale, min=1e-30), err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_size,c_total,tiles_x,tiles_y,max_per_tile", BLEND_CASES)
+def test_blend_backward_kernel_matches_plain(cuda, tile_size, c_total, tiles_x, tiles_y,
+                                             max_per_tile):
+    """Gradient rows within GRAD_TOL of the plain version (sums in another
+    order; the kernel's centred moments lose fewer digits); exact zeros
+    outside every tile's range."""
+    slab, ranges = make_blend_inputs(
+        5, tiles_x=tiles_x, tiles_y=tiles_y, tile_size=tile_size, c_total=c_total,
+        max_per_tile=max_per_tile, deep_tiles=(1,), empty_tiles=(2,))
+    args = [torch.from_numpy(a).to(cuda) for a in (slab, *ranges)]
+    kw = dict(tile_size=tile_size, tiles_x=tiles_x, c_total=c_total)
+    rgb, t_final = blend_forward(*args, **kw)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    g_rgb = torch.randn(rgb.shape, generator=gen, device=cuda)
+    g_t = torch.randn(t_final.shape, generator=gen, device=cuda)
+    before = cuda_build.LAUNCHES["blend_backward"]
+    got = blend_backward(*args, rgb, t_final, g_rgb, g_t, **kw)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["blend_backward"] == before + 1
+    want = blend_backward_plain(*args, rgb, t_final, g_rgb, g_t, **kw)
+    nw = NUM_GEOM + c_total
+    errs = row_errors(got[:nw], want[:nw])
+    assert float(errs.max()) <= GRAD_TOL, errs.tolist()
+    live = torch.zeros(slab.shape[1], dtype=torch.bool, device=cuda)
+    for o, h, c in zip(*(r.tolist() for r in ranges[:3])):
+        live[o + h:o + h + c] = True
+    assert not got[:, ~live].any() and not got[nw:].any()
+    assert got[:nw, live].abs().sum() > 0
+
+
+# (n, I, n_live, sentinel tail): small, then the main path's (~1M gaussians, I = 2^21)
+SEGMENT_CASES = [(700, 2048, 400, 256), (5000, 8192, 5000, 0), (1_007_616, 1 << 21, 700_000, 357_088)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,I,n_live,tail", SEGMENT_CASES)
+def test_segment_sum_kernel_matches_plain(cuda, n, I, n_live, tail):
+    """Per-gaussian sums within 1e-5 of index_add_ (the same sums, which
+    the atomics of index_add_ take in no fixed order); zero columns for
+    ids without slots and for the sentinel."""
+    rng = np.random.default_rng(n)
+    counts = rng.integers(1, 6, size=n_live)
+    src = np.repeat(np.arange(n_live), counts)[:I - tail]
+    total = src.shape[0]
+    src = np.concatenate([src, np.full(I - total, n)]).astype(np.int32)
+    rows = rng.normal(size=(15, I)).astype(np.float32)
+    rows[:, total:] = 0.0
+    rows_t, src_t = torch.from_numpy(rows).to(cuda), torch.from_numpy(src).to(cuda)
+    before = cuda_build.LAUNCHES["dense_segment_sum"]
+    got = dense_segment_sum(rows_t, src_t, n)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["dense_segment_sum"] == before + 1
+    want = dense_segment_sum_plain(rows_t, src_t, n)
+    assert got.shape == want.shape == (15, n + 1)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    last = int(src[total - 1]) + 1
+    assert not got[:, last:].any()
