@@ -1,24 +1,27 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (`mtgs_torch`) on one GPU.
 
-Drives the port's two paths through the entry points a user calls, at the
+Drives the port's paths through the entry points a user calls, at the
 full width of the `mtgs` preset (960x540, tile 32, antialiased, RGB+ED
 with predicted normals, max_intersections 2^21) on a ~1M-gaussian scene
 made from `--seed`: serving (`scene_from_state_dict` -> `evaluate_scene`
--> `render_view` -> `rasterize`) and training (`Trainer.train` ->
-`train_step` -> `loss_and_grads` -> the differentiable `rasterize`), and
-holds the four hand-written CUDA kernels (`csrc/expand_fused.cu`,
-`csrc/blend_forward.cu`, `csrc/blend_backward.cu`, `csrc/segment_sum.cu`)
-against their plain PyTorch versions. Phases, each of which raises on
-failure:
+-> `render_view` -> `rasterize`), training (`Trainer.train` ->
+`train_step` -> `loss_and_grads` -> the differentiable `rasterize`), the
+render tool at nuPlan's 1920x1080 (`tools.render.render_camera_path`) and
+training across the capacity growth that leaves the fused path; and holds
+the seven hand-written CUDA kernels (`csrc/expand_fused.cu`,
+`csrc/blend_forward.cu`, `csrc/blend_backward.cu`, `csrc/segment_sum.cu`,
+`csrc/expand_pairs.cu`, the two of `csrc/transpose.cu`) against their
+plain PyTorch versions. Phases, each of which raises on failure:
 
   1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA;
-  2. build: the four kernels compiled with nvcc for sm_90a, in parallel;
+  2. build: the six kernel sources compiled with nvcc for sm_90a, in
+     parallel;
   3. goldens: the kernel path's rasterize on the four gsplat-math goldens
      in tests/goldens/ (render 2e-3, alpha 1e-3);
   4. main path: the scene in the JAX state-dict layout, carried across
      with `scene_from_state_dict`; ground truth for each view is the
-     plain path's render on the card (the same code with the two kernel
+     plain path's render on the card (the same code with the kernel
      wrappers swapped for their plain versions); `evaluate_scene` over
      the views with the launch counters zeroed just before and read just
      after. Every view of that run is held against its own plain render:
@@ -34,20 +37,38 @@ failure:
      of the scene with jittered means, features_dc and opacities, on the
      phase-4 views with the plain renders as targets (LiDAR depth with
      holes, pseudo depth without); the launch counters are zeroed just
-     before and read just after: each of the four kernels must launch
-     once per step. Every step finite with no skipped step, no
+     before and read just after: each of the four fused-path kernels must
+     launch once per step. Every step finite with no skipped step, no
      truncation; on the view of step 0 the total loss falls within each
      stretch between opacity resets (the reset, which sets every
      opacity to 0.01, raises it by design) and the l1 term falls after
      the reset; ms per step is the median of the host clock around
      `torch.cuda.synchronize()` after warm-up. Then one step's parameter
      gradients and absgrad on the kernel path are held against the same
-     step with all four kernel wrappers swapped for their plain versions
-     (each leaf max-scaled within 2e-4);
-  5. kernels: each kernel against its plain version, the forward two at
-     the shapes of one serving view, the backward two at those of one
-     training step, timed with CUDA events (median of 20 after warm-up),
-     with the least time the card could take for the same work.
+     step with every kernel wrapper swapped for its plain version (each
+     leaf max-scaled within 2e-4);
+  7. classic against fused: the phase-4 views rendered with `fused=False`
+     within 1e-6 of the fused renders, and the phase-6 gradient step's
+     gradients within 1e-5 max-scaled; kernels 5-7 launch on the classic
+     runs only;
+  8. render tool: `render_camera_path` renders 6 frames of a camera path
+     through the phase-4 cameras at 1920x1080 (max_intersections 2^23,
+     where the fused key packing does not fit): every frame takes the
+     classic path, truncates nothing and is held against the plain
+     path's render with phase 4's tolerances; ms per frame;
+  9. growth: `Trainer.train` for GROWTH_STEPS steps on a larger scene
+     (its views make more than 0.85 of GROW_FROM pairs) from
+     max_intersections GROW_FROM; the refine at step 10 grows it to
+     GROW_TO, past the fused gate: the fused kernels launch once per step
+     before, the classic ones (and both blends and the segment sum) once
+     per step after; every step finite, none skipped or truncated, the
+     loss on view 0 falls after the reset; one grown step's gradients
+     against the plain path (2e-4);
+  5. kernels: each kernel against its plain version, the fused forward two
+     at the shapes of one serving view, the backward two at those of one
+     training step, the classic three at a 1920x1080 frame's and a grown
+     training step's, timed with CUDA events (median of 20 after
+     warm-up), with the least time the card could take for the same work.
 
 Prints the card line, the `{"kernels": [...]}` line and, last,
 `{"ok": true, "device": {...}}`; `--out DIR` also writes everything
@@ -79,9 +100,12 @@ from mtgs_torch.eval.pipeline import EvalConfig, evaluate_scene
 from mtgs_torch.models.convert import scene_from_state_dict
 from mtgs_torch.models.gaussians import init_skybox_node, node_capacity
 from mtgs_torch.raster import (
-    RasterizeConfig, blend, cuda_build, expand_fused, rasterize, segment_sum,
+    RasterizeConfig, binning, blend, cuda_build, expand_fused, expand_pairs, rasterize,
+    segment_sum,
 )
-from mtgs_torch.raster.chunk_math import NUM_GEOM
+from mtgs_torch.raster.chunk_math import NUM_GEOM, round8
+from mtgs_torch.raster.expand_fused import fused_fits
+from mtgs_torch.tools import render as render_tool
 from mtgs_torch.train.trainer import Batch, Trainer, loss_and_grads, render_view
 
 # the modules (the packages' attributes of these names are functions)
@@ -107,7 +131,17 @@ N_TRAVELS = 3
 N_FRAMES = 8
 TRAIN_STEPS = 31        # step 30 trains on the view of step 0 (6 views)
 REFINE_EVERY = 10       # the override of the preset's 100
-KERNELS = ("expand_fused", "blend_forward", "blend_backward", "dense_segment_sum")
+FUSED_KERNELS = ("expand_fused", "blend_forward", "blend_backward", "dense_segment_sum")
+CLASSIC_ONLY = ("expand_pairs", "rows_to_attr_major", "attr_major_to_rows")
+KERNELS = FUSED_KERNELS + CLASSIC_ONLY
+# the module whose attribute each kernel wrapper is where the path calls it
+KERNEL_HOMES = {**{k: rasterize_mod for k in KERNELS}, "expand_pairs": binning}
+CLASSIC_TOL = dict(render=1e-6, grads=1e-5)  # phase 7: the classic path against the fused
+RENDER_SIZE = (1920, 1080)  # phase 8: nuPlan's camera resolution, the render tool's default
+RENDER_I = 1 << 23
+RENDER_FRAMES = 6
+GROW_FROM, GROW_TO = 3_145_728, 4_718_592  # phase 9: the preset's first and second growth
+GROWTH_STEPS = 20
 GRAD_STEP = 10          # the step of the gradient check: SH degree 3, sharp-shape gate open
 # the training start: the scene's alive rows jittered by these standard deviations
 JITTER = dict(means=0.05, features_dc=0.3, opacities=0.5)
@@ -267,27 +301,30 @@ def blend_error(got, want):
 
 @contextlib.contextmanager
 def kernels_replaced(fns: dict):
-    """`rasterize` calls fns[name] in place of its kernel wrapper `name`
+    """The rasterizer calls fns[name] in place of its kernel wrapper `name`
     (one of KERNELS) inside the with block."""
-    saved = {k: getattr(rasterize_mod, k) for k in fns}
+    saved = {k: getattr(KERNEL_HOMES[k], k) for k in fns}
     for k, fn in fns.items():
-        setattr(rasterize_mod, k, fn)
+        setattr(KERNEL_HOMES[k], k, fn)
     try:
         yield
     finally:
         for k, fn in saved.items():
-            setattr(rasterize_mod, k, fn)
+            setattr(KERNEL_HOMES[k], k, fn)
 
 
 PLAIN = dict(expand_fused=expand_fused.expand_fused_plain,
              blend_forward=blend.blend_forward_plain,
              blend_backward=blend.blend_backward_plain,
-             dense_segment_sum=segment_sum.dense_segment_sum_plain)
+             dense_segment_sum=segment_sum.dense_segment_sum_plain,
+             expand_pairs=binning.searchsorted_expand,
+             rows_to_attr_major=blend.rows_to_attr_major_plain,
+             attr_major_to_rows=blend.attr_major_to_rows_plain)
 
 
 def plain_path():
-    """The whole path, forward and backward, with the plain versions in
-    place of the four kernels."""
+    """Both paths, forward and backward, with the plain versions in place
+    of the seven kernels."""
     return kernels_replaced(PLAIN)
 
 
@@ -299,7 +336,7 @@ def capturing(args: dict):
             args.setdefault(name, (a, kw))
             return fn(*a, **kw)
         return call
-    return kernels_replaced({k: wrap(k, getattr(rasterize_mod, k)) for k in KERNELS})
+    return kernels_replaced({k: wrap(k, getattr(KERNEL_HOMES[k], k)) for k in KERNELS})
 
 
 @contextlib.contextmanager
@@ -336,6 +373,28 @@ def view_errors(got: dict, want: dict) -> dict:
     err["covered"] = float(covered.float().mean())
     err["psnr"] = float(masked_psnr(got["rgb_appearance"], want["rgb_appearance"]))
     return err
+
+
+def launch_delta(before: dict) -> dict:
+    """The launches since the counts `before`."""
+    return {k: cuda_build.LAUNCHES[k] - before[k] for k in KERNELS}
+
+
+def require_launches(launches: dict, want: dict, what: str) -> None:
+    """Every kernel launched exactly want.get(name, 0) times."""
+    bad = {k: (launches[k], want.get(k, 0)) for k in KERNELS if launches[k] != want.get(k, 0)}
+    require(not bad, f"{what}: launches (got, expected) {bad}")
+
+
+def require_view_close(e: dict, n_pix: int, label: str) -> None:
+    """A view's errors (view_errors) within VIEW_TOL, depth within
+    DEPTH_REL_TOL except at up to 0.1% of its n_pix pixels (BLEND_FLIP_TOL
+    there), and its PSNR at least PSNR_MIN."""
+    bad = [k for k, tol in VIEW_TOL.items() if not e[k] <= tol]
+    bad += ["depth_rel"] * (not (e["depth_rel"] <= BLEND_FLIP_TOL
+                                 and e["depth_flips"] <= max(2, n_pix // 1000)))
+    bad += ["psnr"] * (not e["psnr"] >= PSNR_MIN)
+    require(not bad, f"{label}: kernel path vs plain path out of tolerance in {bad}: {e}")
 
 
 # ---------------------------------------------------------------- phases
@@ -394,30 +453,19 @@ def phase_main(args, dev):
         f"{args.n_inst} instance), {len(views)} views at {cfg.width}x{cfg.height}, "
         f"built in {time.perf_counter() - t0:.1f} s")
 
-    # ground truth: the plain path's render of each view, on the card; the
-    # training views add a LiDAR map with holes (half of the covered
-    # pixels dropped) and a hole-free pseudo depth
+    # ground truth: the plain path's render of each view, on the card
     holes = torch.Generator(device=dev).manual_seed(args.seed + 3)
     batches, train_batches, plain_outs, plain_ms, n_isect = [], [], [], [], []
     for v in views:
         t1 = time.perf_counter()
-        b0 = Batch(image=np.zeros((1, 1, 3), np.float32),
-                   mask=np.ones((1, 1, 1), np.float32), **v)
         with plain_path():
-            out = render_view(params, aux, cfg, b0, 10**9, device=dev)
+            out = render_view(params, aux, cfg, view_batch(v), 10**9, device=dev)
         torch.cuda.synchronize()
         plain_ms.append(1e3 * (time.perf_counter() - t1))
         n_isect.append(int(out["n_intersections"]))
         plain_outs.append({k: out[k] for k in (*VIEW_TOL, "depth")})
-        alpha = out["accumulation"]
-        lidar = torch.where(alpha > 0.5, out["depth"], torch.zeros_like(out["depth"]))
-        batches.append(Batch(image=out["rgb_appearance"], mask=torch.ones_like(alpha),
-                             lidar_depth=lidar, **v))
-        kept = torch.rand(alpha.shape, generator=holes, device=dev) < 0.5
-        train_batches.append(Batch(
-            image=out["rgb_appearance"], mask=torch.ones_like(alpha),
-            lidar_depth=torch.where(kept, lidar, torch.zeros_like(lidar)),
-            pseudo_depth=out["depth"], **v))
+        for dst, b in zip((batches, train_batches), target_batches(out, v, holes)):
+            dst.append(b)
     require(max(n_isect) <= cfg.max_intersections,
             f"n_intersections {n_isect} exceed max_intersections "
             f"{cfg.max_intersections}: the render would be truncated")
@@ -433,22 +481,15 @@ def phase_main(args, dev):
         eval_s = time.perf_counter() - t1
         launches = dict(cuda_build.LAUNCHES)
     # ... to here
-    for k in ("expand_fused", "blend_forward"):
-        require(launches[k] == len(views),
-                f"kernel {k} launched {launches[k]} times over {len(views)} views")
+    require_launches(launches, dict(expand_fused=len(views), blend_forward=len(views)),
+                     f"evaluate_scene over {len(views)} views")
     require(result["num_images"] == len(views) == len(kernel_outs)
             and np.isfinite(result["ssim"]), f"bad eval result {result}")
 
     # every view of that run against its own plain render
     per_view = [view_errors(g, w) for g, w in zip(kernel_outs, plain_outs)]
-    flips_max = max(2, cfg.width * cfg.height // 1000)
     for i, e in enumerate(per_view):
-        bad = [k for k, tol in VIEW_TOL.items() if not e[k] <= tol]
-        bad += ["depth_rel"] * (not (e["depth_rel"] <= BLEND_FLIP_TOL
-                                     and e["depth_flips"] <= flips_max))
-        bad += ["psnr"] * (not e["psnr"] >= PSNR_MIN)
-        require(not bad, f"view {i}: kernel path vs plain path out of tolerance "
-                         f"in {bad}: {e}")
+        require_view_close(e, cfg.width * cfg.height, f"view {i}")
     rmse = {k: v for k, v in result.items() if k.endswith("depth_RMSE")}
     require(all(v <= DEPTH_RMSE_MAX for v in rmse.values()),
             f"depth RMSE above {DEPTH_RMSE_MAX} m: {rmse}")
@@ -483,7 +524,28 @@ def phase_main(args, dev):
         f"cc_psnr {result['cc_psnr']:.2f} dB vs the plain path; "
         f"median {main['ms_per_view_median']:.2f} ms/view (kernel path), "
         f"{main['plain_ms_per_view_median']:.1f} ms/view (plain path)")
-    return params, aux, cfg, batches[0], main, (p_sd, a_sd, train_batches)
+    return params, aux, cfg, batches, main, (p_sd, a_sd, train_batches, views)
+
+
+def view_batch(v: dict) -> Batch:
+    """A view to render (render_view reads no image when not training)."""
+    return Batch(image=np.zeros((1, 1, 3), np.float32), mask=np.ones((1, 1, 1), np.float32),
+                 **v)
+
+
+def target_batches(out: dict, v: dict, holes: torch.Generator):
+    """(eval batch, training batch) of a view whose ground truth is the
+    render `out`: the eval batch carries its depth as LiDAR where alpha >
+    0.5; the training batch drops half of those pixels (a LiDAR map with
+    holes) and adds the hole-free depth as pseudo depth."""
+    alpha = out["accumulation"]
+    lidar = torch.where(alpha > 0.5, out["depth"], torch.zeros_like(out["depth"]))
+    kept = torch.rand(alpha.shape, generator=holes, device=alpha.device) < 0.5
+    return (Batch(image=out["rgb_appearance"], mask=torch.ones_like(alpha),
+                  lidar_depth=lidar, **v),
+            Batch(image=out["rgb_appearance"], mask=torch.ones_like(alpha),
+                  lidar_depth=torch.where(kept, lidar, torch.zeros_like(lidar)),
+                  pseudo_depth=out["depth"], **v))
 
 
 def jittered_state(p_sd, a_sd, seed: int):
@@ -533,19 +595,57 @@ def phase_grads(cfg, state_sd, batch, dev):
     require(not bad, f"kernel-path gradients differ from the plain path's: {bad}")
     log(f"# gradients, kernel path against plain path (max-scaled, tol {GRAD_TOL}): "
         f"worst {max(errs, key=errs.get)} {max(errs.values()):.3g}")
-    return errs, captured
+    return errs, captured, res["kernel"]
+
+
+def check_steps(trainer, logged, max_intersections: int, v0, *, every_stretch: bool):
+    """The checks of a `Trainer.train` run: every step finite with no
+    skipped step; no step truncates (n_intersections within the capacity
+    of its step, growth included); a refine and a reset fired; on view 0
+    (steps v0) the total loss falls within each stretch between opacity
+    resets (a reset lowers every opacity to 0.01 and raises the loss), or
+    within the last stretch only, and the l1 term falls over the last
+    stretch, the one after the reset."""
+    for i, m in enumerate(logged):
+        require(all(np.isfinite(v) for v in m.values()), f"step {i}: non-finite metrics {m}")
+        require(m["nonfinite_grad_step"] == 0, f"step {i} skipped a non-finite gradient")
+    limit = max_intersections
+    for i, m in enumerate(logged):
+        limit = max([limit] + [e["new"] for e in trainer.growth_events
+                               if e["node"] == "max_intersections" and e["step"] <= i])
+        require(m["n_intersections"] <= limit,
+                f"step {i}: {m['n_intersections']} intersections > {limit}: truncated")
+    require(trainer.refine_events and trainer.reset_steps,
+            f"refines {trainer.refine_events}, resets {trainer.reset_steps}: expected both")
+    losses = [m["total_loss"] for m in logged]
+    l1 = [m["l1"] for m in logged]
+    bounds = [0, *trainer.reset_steps, len(logged)]
+    stretches = [[i for i in v0 if lo <= i < hi] for lo, hi in zip(bounds, bounds[1:])]
+    for s in stretches if every_stretch else stretches[-1:]:
+        require(len(s) >= 2 and losses[s[-1]] < losses[s[0]],
+                f"total loss on view 0 did not fall between resets: steps {s}, "
+                f"loss {[losses[i] for i in s]}")
+    require(l1[stretches[-1][-1]] < l1[stretches[-1][0]],
+            f"l1 on view 0 did not fall after the reset: steps {stretches[-1]}, "
+            f"l1 {[l1[i] for i in stretches[-1]]}")
+
+
+def train_config(args, **kw):
+    """`mtgs_config(max_steps=TRAIN_STEPS)` with refine_every REFINE_EVERY."""
+    cfg = configs.mtgs_config(args.width, args.height, max_steps=TRAIN_STEPS)
+    return cfg.replace(control=dataclasses.replace(cfg.control, refine_every=REFINE_EVERY), **kw)
 
 
 def phase_train(args, dev, state_sd, batches):
     """`Trainer.train` on the kernel path with the launch counters zeroed
     just before and read just after."""
-    cfg = configs.mtgs_config(args.width, args.height, max_steps=TRAIN_STEPS)
-    preset = cfg.control.refine_every
-    cfg = cfg.replace(control=dataclasses.replace(cfg.control, refine_every=REFINE_EVERY))
+    cfg = train_config(args)
+    preset = configs.mtgs_config(args.width, args.height, max_steps=TRAIN_STEPS)
+    preset = preset.control.refine_every
     log(f"# training: mtgs_config({args.width}, {args.height}, max_steps={TRAIN_STEPS}) "
         f"with control.refine_every overridden {preset} -> {REFINE_EVERY}; start: jitter "
         f"{JITTER}")
-    grad_errs, captured = phase_grads(cfg, state_sd, batches[0], dev)
+    grad_errs, captured, kernel_grads = phase_grads(cfg, state_sd, batches[0], dev)
 
     params, aux = scene_from_state_dict(*state_sd, device=dev)
     trainer = Trainer(cfg, params, aux, itertools.cycle(batches), seed=args.seed, device=dev)
@@ -593,34 +693,246 @@ def phase_train(args, dev, state_sd, batches):
         f"growth {trainer.growth_events}; gaussians {n0} -> {n1}; n_intersections "
         f"max {max(res['n_intersections'])}")
 
-    for k in KERNELS:
-        require(launches[k] == TRAIN_STEPS,
-                f"kernel {k} launched {launches[k]} times in {TRAIN_STEPS} training steps")
+    require_launches(launches, dict.fromkeys(FUSED_KERNELS, TRAIN_STEPS),
+                     f"{TRAIN_STEPS} training steps")
     require(len(logged) == TRAIN_STEPS, f"{len(logged)} steps logged")
-    for i, m in enumerate(logged):
-        require(all(np.isfinite(v) for v in m.values()), f"step {i}: non-finite metrics {m}")
-        require(m["nonfinite_grad_step"] == 0, f"step {i} skipped a non-finite gradient")
-    limit = cfg.max_intersections
-    for i, m in enumerate(logged):
-        limit = max([limit] + [e["new"] for e in trainer.growth_events
-                               if e["node"] == "max_intersections" and e["step"] <= i])
-        require(m["n_intersections"] <= limit,
-                f"step {i}: {m['n_intersections']} intersections > {limit}: truncated")
-    require(trainer.refine_events and trainer.reset_steps,
-            f"refines {trainer.refine_events}, resets {trainer.reset_steps}: expected both")
-    # on view 0: the total loss falls within each stretch between opacity
-    # resets (a reset lowers every opacity to 0.01 and raises the loss);
-    # the l1 term falls over the last stretch, the one after the reset
-    bounds = [0, *trainer.reset_steps, TRAIN_STEPS]
-    stretches = [[i for i in v0 if lo <= i < hi] for lo, hi in zip(bounds, bounds[1:])]
-    for s in stretches:
-        require(len(s) >= 2 and losses[s[-1]] < losses[s[0]],
-                f"total loss on view 0 did not fall between resets: steps {s}, "
-                f"loss {[losses[i] for i in s]}")
-    require(l1[stretches[-1][-1]] < l1[stretches[-1][0]],
-            f"l1 on view 0 did not fall after the reset: steps {stretches[-1]}, "
-            f"l1 {[l1[i] for i in stretches[-1]]}")
-    return trainer, res, captured
+    check_steps(trainer, logged, cfg.max_intersections, v0, every_stretch=True)
+    return trainer, res, captured, kernel_grads
+
+
+def render_errors(got: dict, want: dict) -> float:
+    """Largest error between two renders of one view: absolute in the
+    images of VIEW_TOL, relative in depth."""
+    err = max(float((got[k] - want[k]).abs().max()) for k in VIEW_TOL)
+    rel = (got["depth"] - want["depth"]).abs() / torch.clamp(want["depth"].abs(), min=1e-6)
+    return max(err, float(rel.max()))
+
+
+def phase_classic(params, aux, cfg, batches, train_cfg, state_sd, train_batch, fused_grads,
+                  dev):
+    """The classic path against the fused path on the phase-4 scene and
+    views (960x540, I = 2^21, where both fit and both hold every pair):
+    each view's render within CLASSIC_TOL["render"], the phase-6 gradient
+    step's gradients and absgrad within CLASSIC_TOL["grads"] max-scaled,
+    and kernels 5-7 launched on the classic runs only."""
+    outs, launches = {}, {}
+    for fused in (True, False):
+        cuda_build.reset_launches()  # each path's launches counted from here ...
+        outs[fused] = [render_view(params, aux, cfg.replace(fused=fused), b, 10**9, device=dev)
+                       for b in batches]
+        torch.cuda.synchronize()
+        launches[fused] = dict(cuda_build.LAUNCHES)  # ... to here
+    n = len(batches)
+    require_launches(launches[True], dict(expand_fused=n, blend_forward=n), "fused renders")
+    require_launches(launches[False], dict(expand_pairs=n, rows_to_attr_major=n,
+                                           blend_forward=n), "classic renders")
+    render_err = max(render_errors(c, f) for c, f in zip(outs[False], outs[True]))
+    require(all(int(o["n_intersections"]) <= cfg.max_intersections for o in outs[False]),
+            "classic render truncated")
+    require(render_err <= CLASSIC_TOL["render"],
+            f"classic renders differ from the fused ones by {render_err}")
+
+    params_c, aux_c = scene_from_state_dict(*state_sd, device=dev)
+    cuda_build.reset_launches()
+    total, _, _, sink, grads = loss_and_grads(params_c, aux_c, train_cfg.replace(fused=False),
+                                              train_batch, GRAD_STEP, device=dev)
+    torch.cuda.synchronize()
+    grad_launches = dict(cuda_build.LAUNCHES)
+    require_launches(grad_launches, {k: 1 for k in KERNELS if k != "expand_fused"},
+                     "classic gradient step")
+    classic = dict(grads, absgrad=sink, total=total.reshape(1))
+    grad_errs = {k: max_scaled_err(classic[k], w) for k, w in fused_grads.items()}
+    bad = {k: e for k, e in grad_errs.items() if not e <= CLASSIC_TOL["grads"]}
+    require(not bad, f"classic-path gradients differ from the fused path's: {bad}")
+    res = dict(render_max_err=render_err, grad_max_err=max(grad_errs.values()),
+               worst_grad=max(grad_errs, key=grad_errs.get), grad_errors=grad_errs,
+               launches_fused=launches[True], launches_classic=launches[False],
+               launches_grad_step=grad_launches, tol=CLASSIC_TOL,
+               n_intersections=[int(o["n_intersections"]) for o in outs[False]])
+    log(f"# classic vs fused: {n} views, max render error {render_err:.3g}; gradient step "
+        f"worst {res['worst_grad']} {res['grad_max_err']:.3g} (tol {CLASSIC_TOL}); launches "
+        f"classic {launches[False]}, fused {launches[True]}, classic step {grad_launches}")
+    return res, launches[False], grad_launches
+
+
+def png_size(path: Path):
+    """(width, height) from a PNG's IHDR."""
+    head = path.read_bytes()[:24]
+    require(head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR", f"{path}: not a PNG")
+    return int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big")
+
+
+def phase_render_tool(args, params, aux, views, dev):
+    """`render_camera_path` at 1920x1080 (a camera path through the
+    phase-4 cameras, intrinsics rescaled to the render size), the preset
+    otherwise with max_intersections RENDER_I: the fused key packing does
+    not fit, so every frame takes the classic path. Each frame is held
+    against the plain path's render of the same view."""
+    W, H = RENDER_SIZE
+    cfg = configs.mtgs_config(args.width, args.height).replace(max_intersections=RENDER_I)
+    require(not fused_fits(RENDER_I, -(-W // cfg.tile_size) * -(-H // cfg.tile_size), 1),
+            "the render's fused key packing fits: phase 8 would not take the classic path")
+    out_dir = ROOT / "build" / "chip_smoke" / "render"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fy = args.focal * H / args.height
+    fov = float(np.rad2deg(2.0 * np.arctan(0.5 * H / fy)))
+    frames = [dict(camera_to_world=v["c2w"].reshape(-1).tolist(), fov=fov)
+              for v in (views * RENDER_FRAMES)[:RENDER_FRAMES]]
+    path = out_dir / "camera_path.json"
+    path.write_text(json.dumps(dict(render_width=W, render_height=H, fps=30,
+                                    camera_path=frames)))
+
+    calls = []
+    saved = render_tool.render_view
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = saved(*a, **kw)
+        torch.cuda.synchronize()
+        calls.append(dict(args=(a, kw), ms=1e3 * (time.perf_counter() - t0),
+                          out={k: out[k] for k in (*VIEW_TOL, "depth", "n_intersections")}))
+        return out
+
+    render_tool.render_view = timed
+    try:
+        cuda_build.reset_launches()  # the render tool's launches counted from here ...
+        t0 = time.perf_counter()
+        written = render_tool.render_camera_path(params, aux, cfg, path, out_dir / "frames",
+                                                 make_video=False, device=dev)
+        tool_s = time.perf_counter() - t0
+        launches = dict(cuda_build.LAUNCHES)  # ... to here
+    finally:
+        render_tool.render_view = saved
+    n = RENDER_FRAMES
+    require(len(written) == len(calls) == n, f"{len(written)} frames written, {len(calls)} renders")
+    require_launches(launches, dict(expand_pairs=n, rows_to_attr_major=n, blend_forward=n),
+                     "render tool")
+    require(all(png_size(p) == (W, H) for p in written), "frames of the wrong size")
+    per_frame, plain_ms = [], []
+    for i, c in enumerate(calls):
+        got = c["out"]
+        n_isect = int(got["n_intersections"])
+        require(n_isect <= RENDER_I, f"frame {i}: {n_isect} intersections > {RENDER_I}")
+        require(got["rgb"].shape == (H, W, 3), f"frame {i}: rgb {tuple(got['rgb'].shape)}")
+        t1 = time.perf_counter()
+        with plain_path():
+            want = saved(*c["args"][0], **c["args"][1])
+        torch.cuda.synchronize()
+        plain_ms.append(1e3 * (time.perf_counter() - t1))
+        e = view_errors(got, want)
+        require_view_close(e, W * H, f"frame {i}")
+        per_frame.append(dict(e, n_intersections=n_isect, ms=c["ms"]))
+    res = dict(size=[W, H], frames=n, max_intersections=RENDER_I, fov_deg=fov,
+               launches=launches, tool_seconds=tool_s,
+               ms_per_frame_median=float(np.median([c["ms"] for c in calls[1:]])),
+               plain_ms_per_frame_median=float(np.median(plain_ms[1:])),
+               per_frame=per_frame,
+               worst_frame={k: max(e[k] for e in per_frame)
+                            for k in (*VIEW_TOL, "depth_rel", "depth_flips")})
+    log(f"# render tool: {n} frames at {W}x{H} through render_camera_path in {tool_s:.2f} s; "
+        f"median {res['ms_per_frame_median']:.2f} ms/frame after the first (plain path "
+        f"{res['plain_ms_per_frame_median']:.1f}); launches {launches}; n_intersections "
+        f"{[e['n_intersections'] for e in per_frame]} (max {RENDER_I})")
+    log(f"# render tool, worst frame against its plain render: {res['worst_frame']}")
+    return res, calls[-1]["args"], cfg
+
+
+def scene_pairs(params, aux, cfg, views, dev):
+    """The untruncated pair count of each view."""
+    return [int(render_view(params, aux, cfg, view_batch(v), 10**9,
+                            device=dev)["n_intersections"]) for v in views]
+
+
+def phase_growth(args, dev):
+    """`Trainer.train` across the capacity growth that crosses the fused
+    gate: a scene larger than phase 4's (its views make more than
+    isect_grow_frac of GROW_FROM pairs) trains from max_intersections
+    GROW_FROM (fused) at 960x540; the refine after step 9 grows it to
+    GROW_TO, where the fused key packing no longer fits, and every later
+    step takes the classic path."""
+    cfg = train_config(args, max_intersections=GROW_FROM)
+    tiles = cfg.raster_config().tiles_x * cfg.raster_config().tiles_y
+    require(fused_fits(GROW_FROM, tiles, 1) and not fused_fits(GROW_TO, tiles, 1),
+            "the growth does not cross the fused gate")
+    lo, hi = cfg.isect_grow_frac * GROW_FROM, GROW_FROM
+    views = make_views(args.seed, args.views, args.width, args.height, args.focal)
+    n_bg = args.growth_n_bg
+    for attempt in range(2):
+        p_sd, a_sd = make_scene_state(args.seed, n_bg, args.n_sky, args.n_inst)
+        state_sd = (jittered_state(p_sd, a_sd, args.seed), a_sd)
+        params, aux = scene_from_state_dict(*state_sd, device=dev)
+        pairs = scene_pairs(params, aux, cfg, views, dev)
+        log(f"# growth: {n_bg} background gaussians, start pairs per view {pairs} "
+            f"(window ({lo:.0f}, {hi}])")
+        if all(lo * 1.01 < p <= hi * 0.99 for p in pairs) or attempt == 1:
+            break
+        # pairs grow about in proportion to the background: aim at the window's middle
+        n_bg = int(n_bg * 0.5 * (lo + hi) / float(np.median(pairs)))
+        del params, aux
+    require(all(lo < p <= hi for p in pairs),
+            f"start pairs {pairs} outside ({lo}, {hi}]: the growth would not fire, "
+            "or the fused steps would truncate")
+
+    # targets: the kernel path's renders of the scene before jitter
+    holes = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    truth, truth_aux = scene_from_state_dict(p_sd, a_sd, device=dev)
+    batches = [target_batches(render_view(truth, truth_aux, cfg, view_batch(v), 10**9,
+                                          device=dev), v, holes)[1] for v in views]
+    del truth, truth_aux
+    grown = cfg.replace(max_intersections=GROW_TO)
+    grad_errs, captured, _ = phase_grads(grown, state_sd, batches[0], dev)
+
+    trainer = Trainer(cfg, params, aux, itertools.cycle(batches), seed=args.seed, device=dev)
+    stamps, logged, per_step = [], [], []
+    last = dict(cuda_build.LAUNCHES)
+
+    def on_step(step, metrics):  # called after the step's refine and reset
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        logged.append(metrics)
+        per_step.append(launch_delta(last))
+        last.update(cuda_build.LAUNCHES)
+
+    torch.cuda.synchronize()
+    # the training path across the growth: kernel launches counted from here ...
+    cuda_build.reset_launches()
+    last.update(cuda_build.LAUNCHES)
+    t0 = time.perf_counter()
+    trainer.train(GROWTH_STEPS, log_every=1, callback=on_step)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(cuda_build.LAUNCHES)
+    # ... to here
+    step_ms = list(1e3 * np.diff([t0] + stamps))
+    growth = [e for e in trainer.growth_events if e["node"] == "max_intersections"]
+    require(len(growth) == 1 and growth[0]["old"] == GROW_FROM and growth[0]["new"] == GROW_TO,
+            f"expected one growth {GROW_FROM} -> {GROW_TO}, got {growth}")
+    first_classic = growth[0]["step"]  # the step after the refine that grew it
+    fused_step = dict.fromkeys(FUSED_KERNELS, 1)
+    classic_step = {k: 1 for k in KERNELS if k != "expand_fused"}
+    for i, d in enumerate(per_step):
+        require_launches(d, fused_step if i < first_classic else classic_step, f"step {i}")
+    require(len(logged) == GROWTH_STEPS, f"{len(logged)} steps logged")
+    v0 = list(range(0, len(logged), len(batches)))
+    check_steps(trainer, logged, GROW_FROM, v0, every_stretch=False)
+    losses = [m["total_loss"] for m in logged]
+    res = dict(
+        n_bg=n_bg, start_pairs=pairs, steps=GROWTH_STEPS, seconds=train_s, step_ms=step_ms,
+        growth=growth, first_classic_step=first_classic, launches=launches,
+        ms_per_step_fused_median=float(np.median(step_ms[2:first_classic - 1])),
+        ms_per_step_classic_median=float(np.median(step_ms[first_classic + 1:])),
+        n_intersections=[m["n_intersections"] for m in logged], total_loss=losses,
+        l1=[m["l1"] for m in logged], refine_events=trainer.refine_events,
+        reset_steps=trainer.reset_steps, grad_errors=grad_errs)
+    log(f"# growth: {GROWTH_STEPS} steps in {train_s:.2f} s; growth {growth}; median "
+        f"{res['ms_per_step_fused_median']:.2f} ms/step fused (steps 2-{first_classic - 2}), "
+        f"{res['ms_per_step_classic_median']:.2f} ms/step classic (steps "
+        f"{first_classic + 1}-{GROWTH_STEPS - 1}); launches {launches}")
+    log(f"# growth: n_intersections per step {res['n_intersections']}; total loss "
+        f"{[round(v, 5) for v in losses]}; refines {trainer.refine_events}, resets "
+        f"{trainer.reset_steps}")
+    return trainer, res, captured, launches
 
 
 def row_errors(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
@@ -632,10 +944,13 @@ def row_errors(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def phase_kernels(params, aux, cfg, batch, by_path, train_captured, dev):
-    """Each kernel against its plain version: the forward two at one
-    serving view's shapes, the backward two at one training step's.
-    by_path: {path: launch counts of that path's run}."""
+def phase_kernels(params, aux, cfg, batch, by_path, train_captured, render_captured,
+                  growth_captured, dev):
+    """Each kernel against its plain version: the fused forward two at one
+    serving view's shapes, the backward two at one training step's, the
+    classic three (classic_kernel_rows) at a 1920x1080 frame's and a
+    grown training step's. by_path: {path: launch counts of that path's
+    run}."""
     captured = {}
     with capturing(captured):
         render_view(params, aux, cfg, batch, 10**9, device=dev)
@@ -784,6 +1099,7 @@ def phase_kernels(params, aux, cfg, batch, by_path, train_captured, dev):
                            .index_add_(1, src64, rows)),
         library_note="index_add_ of the rows into a zeroed [W, n + 1] (index precomputed)",
         shapes=dict(rows=list(rows.shape), n=n, live_slots=live_slots), bytes=s_bytes))
+    kernels += classic_kernel_rows(render_captured, growth_captured, launches, dev)
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
         k["kernel_ms"] = k["ms"]
@@ -792,10 +1108,87 @@ def phase_kernels(params, aux, cfg, batch, by_path, train_captured, dev):
     return kernels
 
 
+def classic_kernel_rows(render_captured, growth_captured, launches, dev):
+    """Kernels 5-7 against their plain versions (bit-equal: integer math
+    and copies), timed at phase 8's shapes (a 1920x1080 frame, I = 2^23)
+    and, under `at_training`, at phase 9's (a training step at I =
+    GROW_TO); attr_major_to_rows runs in the backward only, so at phase
+    9's alone. Bounds by bytes: each input read once, each output written
+    once."""
+    def expand_row(captured):
+        (offsets, packed, total, I), kw = captured["expand_pairs"]
+        got = expand_pairs.expand_pairs(offsets, packed, total, I, **kw)
+        want = binning.searchsorted_expand(offsets, packed, total, I, **kw)
+        torch.cuda.synchronize()
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                "expand_pairs kernel differs from its plain version")
+        slot = torch.arange(I, dtype=torch.int32, device=dev)
+        n = offsets.shape[0]
+        nbytes = 4 * (2 * n + 1) + 8 * I
+        return dict(
+            max_abs_err=0.0,
+            ms=cuda_ms(lambda: expand_pairs.expand_pairs(offsets, packed, total, I, **kw)),
+            plain_ms=cuda_ms(lambda: binning.searchsorted_expand(offsets, packed, total, I,
+                                                                 **kw)),
+            searchsorted_ms=cuda_ms(lambda: torch.searchsorted(offsets, slot, right=True,
+                                                               out_int32=True)),
+            bound_ms=1e3 * nbytes / PEAK_BYTES_PER_S, bound_by="bytes", library_ms=None,
+            bytes=nbytes, shapes=dict(n=n, I=I, total=int(total), **kw))
+
+    def transpose_row(name, a, library):
+        kernel, plain = getattr(blend, name), getattr(blend, name + "_plain")
+        got = kernel(a)
+        torch.cuda.synchronize()
+        require(torch.equal(got, plain(a)), f"{name} kernel differs from its plain version")
+        nbytes = 4 * (a.numel() + got.numel())
+        return dict(
+            max_abs_err=0.0, ms=cuda_ms(lambda: kernel(a)), plain_ms=cuda_ms(lambda: plain(a)),
+            bound_ms=1e3 * nbytes / PEAK_BYTES_PER_S, bound_by="bytes",
+            library_ms=cuda_ms(lambda: library(a)), bytes=nbytes,
+            shapes=dict(input=list(a.shape), output=list(got.shape)))
+
+    def pad_t(rows):
+        w = rows.shape[1]
+        return torch.nn.functional.pad(rows, (0, round8(w) - w)).t().contiguous()
+
+    rows = []
+    e_render, e_train = expand_row(render_captured), expand_row(growth_captured)
+    rows.append(dict(
+        name="expand_pairs", route="cuda", source="mtgs_torch/csrc/expand_pairs.cu",
+        replaces="mtgs_tpu/raster/expand_pallas.py:102",
+        tpu_kernel="mtgs_tpu/raster/expand_pallas.py::expand_pairs",
+        launches=launches["expand_pairs"], tol=0.0, **e_render, at_training=e_train,
+        library_note="none: the plain version (torch.searchsorted and gathers) is not one "
+                     "call; searchsorted_ms times torch.searchsorted alone"))
+    r_render = transpose_row("rows_to_attr_major", render_captured["rows_to_attr_major"][0][0],
+                             pad_t)
+    r_train = transpose_row("rows_to_attr_major", growth_captured["rows_to_attr_major"][0][0],
+                            pad_t)
+    rows.append(dict(
+        name="rows_to_attr_major", route="cuda", source="mtgs_torch/csrc/transpose.cu",
+        replaces="mtgs_tpu/raster/blend_pallas.py:568",
+        tpu_kernel="mtgs_tpu/raster/blend_pallas.py::rows_to_attr_major",
+        launches=launches["rows_to_attr_major"], tol=0.0, **r_render, at_training=r_train,
+        library_note="F.pad(rows, (0, round8(W) - W)).t().contiguous() (also the plain "
+                     "version)"))
+    a_train = transpose_row("attr_major_to_rows", growth_captured["attr_major_to_rows"][0][0],
+                            lambda a: a.t().contiguous())
+    rows.append(dict(
+        name="attr_major_to_rows", route="cuda", source="mtgs_torch/csrc/transpose.cu",
+        replaces="mtgs_tpu/raster/blend_pallas.py:588",
+        tpu_kernel="mtgs_tpu/raster/blend_pallas.py::attr_major_to_rows",
+        launches=launches["attr_major_to_rows"], tol=0.0, **a_train,
+        library_note="attrs.t().contiguous() (also the plain version)"))
+    return rows
+
+
 KERNEL_SYMBOLS = dict(expand_fused="expand_fused_kernel",
                       blend_forward="blend_forward_kernel",
                       blend_backward="blend_backward_kernel",
-                      dense_segment_sum="segment_sum_kernel")
+                      dense_segment_sum="segment_sum_kernel",
+                      expand_pairs="expand_pairs_kernel",
+                      rows_to_attr_major="rows_to_attr_major_kernel",
+                      attr_major_to_rows="attr_major_to_rows_kernel")
 
 
 def phase_profile(label, fn, top: int = 25):
@@ -840,6 +1233,9 @@ def main(argv=None):
     ap.add_argument("--n-bg", type=int, default=900_000)
     ap.add_argument("--n-sky", type=int, default=100_000)
     ap.add_argument("--n-inst", type=int, default=4096)
+    ap.add_argument("--growth-n-bg", type=int, default=1_500_000,
+                    help="phase 9's background (rescaled once if its views' pair counts "
+                         "miss the growth window)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one view and one training step with torch.profiler "
                          "(kernel time by name)")
@@ -856,23 +1252,43 @@ def main(argv=None):
     card = phase_card()
     build_s = phase_build()
     goldens = phase_goldens(dev)
-    params, aux, cfg, batch, main_res, (p_sd, a_sd, train_batches) = phase_main(args, dev)
+    params, aux, cfg, batches, main_res, (p_sd, a_sd, train_batches, views) = \
+        phase_main(args, dev)
+    batch = batches[0]
     state_sd = (jittered_state(p_sd, a_sd, args.seed), a_sd)
-    trainer, train_res, train_captured = phase_train(args, dev, state_sd, train_batches)
-    kernels = phase_kernels(params, aux, cfg, batch,
-                            dict(serving=main_res["launches"], training=train_res["launches"]),
-                            train_captured, dev)
+    trainer, train_res, train_captured, fused_grads = phase_train(
+        args, dev, state_sd, train_batches)
+    classic_res, classic_launches, classic_step_launches = phase_classic(
+        params, aux, cfg, batches, train_config(args), state_sd, train_batches[0],
+        fused_grads, dev)
+    del fused_grads
+    render_res, (frame_a, frame_kw), _ = phase_render_tool(args, params, aux, views, dev)
+    render_captured = {}
+    with capturing(render_captured):
+        render_view(*frame_a, **frame_kw)
+    growth_trainer, growth_res, growth_captured, growth_launches = phase_growth(args, dev)
+    by_path = dict(serving=main_res["launches"], training=train_res["launches"],
+                   classic_renders=classic_launches, classic_step=classic_step_launches,
+                   render_tool=render_res["launches"], growth=growth_launches)
+    kernels = phase_kernels(params, aux, cfg, batch, by_path, train_captured,
+                            render_captured, growth_captured, dev)
     prof = None
     if args.profile:
         prof = dict(
             view=phase_profile("one view", lambda: render_view(
                 params, aux, cfg, batch, 10**9, device=dev)),
-            train_step=phase_profile("one training step", lambda: trainer.train(1)))
+            train_step=phase_profile("one training step", lambda: trainer.train(1)),
+            classic_frame=phase_profile(
+                f"one {RENDER_SIZE[0]}x{RENDER_SIZE[1]} classic frame",
+                lambda: render_view(*frame_a, **frame_kw)),
+            classic_train_step=phase_profile("one classic training step",
+                                             lambda: growth_trainer.train(1)))
 
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         summary = dict(card=card, build_seconds=build_s, goldens=goldens, main=main_res,
-                       train=train_res, kernels=kernels, profile=prof,
+                       train=train_res, classic=classic_res, render_tool=render_res,
+                       growth=growth_res, kernels=kernels, profile=prof,
                        seconds=time.perf_counter() - t_start)
         (args.out / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -4,12 +4,14 @@ A second package beside `mtgs_tpu/`, mirroring its layout so every module
 has an obvious counterpart:
 
     core/      quaternions, spherical harmonics, view matrices
-    raster/    projection, binning, the fused differentiable rasterizer and
-               its hand-written CUDA kernels (csrc/) with plain twins
+    raster/    projection, binning, the differentiable rasterizer (fused and
+               classic paths) and its hand-written CUDA kernels (csrc/)
+               with plain twins
     models/    scene-graph nodes, instances, appearance, state conversion
     train/     render_view, losses, Adam, density control, camera-pose
                optimisation, the training step and loop
     eval/      metric suite + the per-traversal eval pipeline
+    tools/     trajectory, camera-path and dataset rendering
 
 This package imports torch, numpy and scipy only — never jax or mtgs_tpu.
 Entry points take an explicit `device` that defaults to "cuda" and raise

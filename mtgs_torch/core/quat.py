@@ -1,6 +1,7 @@
 """Quaternion math (wxyz convention), batched over leading dims.
 
-Port of `mtgs_tpu/core/quat.py`: the subset the render path uses.
+Port of `mtgs_tpu/core/quat.py`: the subset the render path and the
+render tool use.
 """
 
 from __future__ import annotations
@@ -33,6 +34,37 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
         torch.stack([r20, r21, r22], dim=-1),
     ]
     return torch.stack(rows, dim=-2)
+
+
+def rotmat_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] rotation matrices -> [..., 4] unit quaternions, w >= 0.
+
+    Branch-free Shepperd form, as the JAX function: all four candidate
+    quaternions are computed and the one with the largest pivot (trace,
+    m00, m11, m22) is kept."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22,
+                      1.0 - m00 - m11 + m22], dim=-1)
+    qw = torch.sqrt(torch.clamp(qw, min=1e-12)) * 0.5  # candidate magnitudes
+    d = 4.0 * qw
+    cands = torch.stack([
+        torch.stack([qw[..., 0], (m21 - m12) / d[..., 0], (m02 - m20) / d[..., 0],
+                     (m10 - m01) / d[..., 0]], dim=-1),
+        torch.stack([(m21 - m12) / d[..., 1], qw[..., 1], (m01 + m10) / d[..., 1],
+                     (m02 + m20) / d[..., 1]], dim=-1),
+        torch.stack([(m02 - m20) / d[..., 2], (m01 + m10) / d[..., 2], qw[..., 2],
+                     (m12 + m21) / d[..., 2]], dim=-1),
+        torch.stack([(m10 - m01) / d[..., 3], (m02 + m20) / d[..., 3], (m12 + m21) / d[..., 3],
+                     qw[..., 3]], dim=-1),
+    ], dim=-2)  # [..., 4 candidates, 4]
+    best = torch.argmax(torch.stack([tr, m00, m11, m22], dim=-1), dim=-1)
+    idx = best[..., None, None].expand(*best.shape, 1, 4)
+    q = torch.gather(cands, -2, idx)[..., 0, :]
+    q = torch.where(q[..., :1] < 0, -q, q)  # canonical sign: w >= 0
+    return quat_normalize(q)
 
 
 def quat_mult(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Per-tile alpha blend, forward and backward: CUDA kernel wrappers +
-plain twins.
+"""Per-tile alpha blend, forward and backward, and the slab transposes:
+CUDA kernel wrappers + plain twins.
 
 Port of `mtgs_tpu/raster/blend_pallas.py::blend_forward_pallas` and
 `blend_backward_pallas` (the kernels, `csrc/blend_forward.cu` and
@@ -16,6 +16,11 @@ the backward the per-intersection gradients g_slab_t [W, cap] (rows g_mx,
 g_my, g_cA, g_cB, g_cC, g_opac, g_colours), zero wherever no pixel
 composited the intersection: slack slots, slots past a tile's early exit
 and lanes outside every tile's range.
+
+The classic path builds the slab from gathered per-slot rows and turns
+the per-gaussian gradient sums back into rows with two transposes, ports
+of `blend_pallas.py::rows_to_attr_major` and `attr_major_to_rows` (the
+kernels, `csrc/transpose.cu`).
 """
 
 from __future__ import annotations
@@ -23,10 +28,11 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from mtgs_torch.raster import cuda_build
 from mtgs_torch.raster.chunk_math import (
-    CHUNK, LOG_T_EPS, MAX_CH, NUM_GEOM, backward_chunk, forward_chunk, pixel_features,
+    CHUNK, LOG_T_EPS, MAX_CH, NUM_GEOM, backward_chunk, forward_chunk, pixel_features, round8,
 )
 
 _TILE_GROUP = 128  # tiles per step of the plain versions (bounds their temporaries)
@@ -48,6 +54,73 @@ def _lib_backward():
         fn.argtypes = [p, ctypes.c_longlong, i, p, p, p, i, i, i, i, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _lib_transpose(name):
+    fn = getattr(cuda_build.load("transpose.cu"), name)
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([p, ctypes.c_longlong, i, i, p, p] if name == "mtgs_rows_to_attr_major"
+                       else [p, ctypes.c_longlong, i, p, p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+_MAX_TRANSPOSE_W = 32  # csrc/transpose.cu's kMaxW
+
+
+def _check_2d(a, name):
+    if a.dtype != torch.float32 or a.ndim != 2 or not a.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous float32 2-d tensor")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {a.device}")
+
+
+def rows_to_attr_major(rows: torch.Tensor) -> torch.Tensor:
+    """[cap, W] slot rows -> [round8(W), cap] attribute-major, pad rows
+    zero: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors. Any cap; W <= 32 on the card."""
+    _check_2d(rows, "rows")
+    if rows.device.type == "cpu":
+        return rows_to_attr_major_plain(rows)
+    cap, w = rows.shape
+    if not 1 <= w <= _MAX_TRANSPOSE_W:
+        raise ValueError(f"the CUDA transpose takes 1 <= W <= {_MAX_TRANSPOSE_W}, got {w}")
+    out = torch.empty((round8(w), cap), dtype=torch.float32, device=rows.device)
+    err = _lib_transpose("mtgs_rows_to_attr_major")(
+        rows.data_ptr(), cap, w, out.shape[0], out.data_ptr(),
+        torch.cuda.current_stream(rows.device).cuda_stream)
+    cuda_build.check(err, "rows_to_attr_major")
+    cuda_build.LAUNCHES["rows_to_attr_major"] += 1
+    return out
+
+
+def rows_to_attr_major_plain(rows: torch.Tensor) -> torch.Tensor:
+    w = rows.shape[1]
+    return F.pad(rows, (0, round8(w) - w)).t().contiguous()
+
+
+def attr_major_to_rows(attrs: torch.Tensor) -> torch.Tensor:
+    """[W, cap] attribute-major -> [cap, W] rows: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors. Any cap; W <= 32 on the
+    card."""
+    _check_2d(attrs, "attrs")
+    if attrs.device.type == "cpu":
+        return attr_major_to_rows_plain(attrs)
+    w, cap = attrs.shape
+    if not 1 <= w <= _MAX_TRANSPOSE_W:
+        raise ValueError(f"the CUDA transpose takes 1 <= W <= {_MAX_TRANSPOSE_W}, got {w}")
+    out = torch.empty((cap, w), dtype=torch.float32, device=attrs.device)
+    err = _lib_transpose("mtgs_attr_major_to_rows")(
+        attrs.data_ptr(), cap, w, out.data_ptr(),
+        torch.cuda.current_stream(attrs.device).cuda_stream)
+    cuda_build.check(err, "attr_major_to_rows")
+    cuda_build.LAUNCHES["attr_major_to_rows"] += 1
+    return out
+
+
+def attr_major_to_rows_plain(attrs: torch.Tensor) -> torch.Tensor:
+    return attrs.t().contiguous()
 
 
 def _check_inputs(slab_t, ranges, c_total):

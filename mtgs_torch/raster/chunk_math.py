@@ -32,6 +32,11 @@ ALPHA_MAX = 0.999
 LOG_T_EPS = -9.210340371976182  # log(1e-4)
 
 
+def round8(x: int) -> int:
+    """x rounded up to a multiple of 8 (the slab's row count for x rows)."""
+    return ((x + 7) // 8) * 8
+
+
 def pixel_features(tile_size: int, device) -> torch.Tensor:
     """[6, PIX] tile-local pixel monomials x², y², xy, x, y, 1 (x, y at
     pixel centres); every entry is exact in f32."""

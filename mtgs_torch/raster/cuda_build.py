@@ -25,10 +25,12 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mtgs_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("blend_forward.cu", "expand_fused.cu", "blend_backward.cu", "segment_sum.cu")
+SOURCES = ("blend_forward.cu", "expand_fused.cu", "blend_backward.cu", "segment_sum.cu",
+           "expand_pairs.cu", "transpose.cu")
 
-LAUNCHES: Dict[str, int] = {"blend_forward": 0, "expand_fused": 0, "blend_backward": 0,
-                            "dense_segment_sum": 0}
+LAUNCHES: Dict[str, int] = dict.fromkeys((
+    "blend_forward", "expand_fused", "blend_backward", "dense_segment_sum", "expand_pairs",
+    "rows_to_attr_major", "attr_major_to_rows"), 0)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -21,6 +21,7 @@ import ctypes
 import torch
 
 from mtgs_torch.raster import cuda_build
+from mtgs_torch.raster.chunk_math import round8
 
 B = 256       # the TPU kernel's pair slots per grid step
 ALIGN = 128   # table-window anchor alignment
@@ -42,10 +43,6 @@ def fused_fits(max_intersections: int, num_tiles: int, n_gauss: int) -> bool:
         and n_gauss < (1 << 24)
         and ((num_tiles + 1) << sb) + max_intersections < (1 << 31)
     )
-
-
-def _round8(x: int) -> int:
-    return ((x + 7) // 8) * 8
 
 
 def _lib():
@@ -72,7 +69,7 @@ def _check_inputs(table, offsets, packed, total, max_intersections, num_tiles):
     if not fused_fits(max_intersections, num_tiles, n):
         raise ValueError(
             f"fused expansion does not fit (max_intersections={max_intersections}, "
-            f"num_tiles={num_tiles}, n={n}); the classic path is not ported yet")
+            f"num_tiles={num_tiles}, n={n}): rasterize takes the classic path there")
 
 
 def expand_fused(table, offsets, packed, total, max_intersections: int, *,
@@ -87,7 +84,7 @@ def expand_fused(table, offsets, packed, total, max_intersections: int, *,
         raise ValueError(f"unsupported device {table.device}")
     nw, n = table.shape
     I = max_intersections
-    w_out = _round8(nw)
+    w_out = round8(nw)
     dev = table.device
     key = torch.empty((I,), dtype=torch.int32, device=dev)
     src = torch.empty((I,), dtype=torch.int32, device=dev)
@@ -130,6 +127,6 @@ def expand_fused_plain(table, offsets, packed, total, max_intersections: int, *,
     owned = live | ((n - 1) < (g // ALIGN) * ALIGN + WINA)
     key = (tile << slot_bits(I)) | slot
     src = torch.where(owned, j, torch.zeros_like(j))
-    attrs = torch.zeros((_round8(nw), I), dtype=torch.float32, device=dev)
+    attrs = torch.zeros((round8(nw), I), dtype=torch.float32, device=dev)
     attrs[:nw] = torch.where(owned, table[:, j], torch.zeros((), device=dev))
     return key.to(torch.int32), src, attrs

@@ -1,21 +1,39 @@
-"""Differentiable rasterization API (the fused branch).
+"""Differentiable rasterization API: the fused and the classic branch.
 
-Port of `mtgs_tpu/raster/rasterize.py::rasterize` on its fused branch
-(:673-702, :791-869): projection -> tile spans -> depth sort -> pair
-expansion (`expand_fused`) -> pair sort by (tile, depth) -> per-tile
-ranges -> forward blend (`blend_forward`) -> image assembly and ED
-normalisation. The JAX package moves attributes through its sorts as
-payload operands because random gathers are slow on a TPU; here the
-sorts are `torch.sort` and the permutations are gathers.
+Port of `mtgs_tpu/raster/rasterize.py::rasterize` (:673-702, :791-896).
+Both branches run projection -> tile spans -> depth sort -> pair
+expansion -> pair sort by (tile, depth) -> per-tile ranges -> forward
+blend (`blend_forward`) -> image assembly and ED normalisation. They
+differ in how the attributes reach the blend's slab:
 
-Gradients: one `torch.autograd.Function` spans the depth sort, the
-expansion, the pair sort and the blend. Its backward is the JAX
+* fused (:791-869, the default where `fused_fits` holds): `expand_fused`
+  writes each slot's sort key, owner and attribute columns in one pass,
+  and the tile-sorted slab is a column gather of them;
+* classic (:870-896, where `config.fused` is False or the int32 key
+  packing `((num_tiles + 1) << slot_bits(I)) + I < 2^31` fails, as at
+  1920x1080 or past the trainer's second capacity growth at 960x540):
+  `binning.bin_gaussians` (with `expand_pairs`) gives each tile-sorted
+  slot its depth-sorted owner `gidx`, and the slab is the gathered
+  table rows turned attribute-major (`rows_to_attr_major`).
+
+The JAX package moves attributes through its sorts as payload operands
+because random gathers are slow on a TPU; here the sorts are
+`torch.sort` and the permutations are gathers.
+
+Gradients. Fused: one `torch.autograd.Function` spans the depth sort,
+the expansion, the pair sort and the blend; its backward is the JAX
 `_gather_fused_bwd` (:473-511): the backward blend (`blend_backward`),
 the gradient rows back to slot order, two |g_mx|, |g_my| rows appended
 (the absgrad densify signal), a per-gaussian `dense_segment_sum` keyed by
-the slot owners, and the depth permutation undone. Binning and the sorts
-are index math and run under `torch.no_grad()`, at the JAX package's
-stop-gradient points. Extras beyond gsplat's signature, as in JAX:
+the slot owners, and the depth permutation undone. Classic: two
+Functions, `_Blend` (JAX `_blend`, :93-152) and `_GatherIntersections`
+(JAX `_gather_intersections`, :168-253, its TPU branch): the slab
+gradient's columns sorted stably by `gidx` (dead slots keyed to the
+sentinel), the absgrad rows appended, `dense_segment_sum`,
+`attr_major_to_rows` and the depth permutation undone. Binning and the
+sorts are index math and run under `torch.no_grad()`, at the JAX
+package's stop-gradient points. Extras beyond gsplat's signature, as in
+JAX:
 
 * `tap2d`: an [N, 2] tensor added to the projected 2D means; its
   gradient is the screen-space means2d gradient.
@@ -30,9 +48,11 @@ from typing import Tuple
 
 import torch
 
-from mtgs_torch.raster.binning import padded_capacity, tile_spans
-from mtgs_torch.raster.blend import blend_backward, blend_forward
-from mtgs_torch.raster.chunk_math import CHUNK, MAX_CH, NUM_GEOM
+from mtgs_torch.raster.binning import bin_gaussians, padded_capacity, tile_spans, window_ranges
+from mtgs_torch.raster.blend import (
+    attr_major_to_rows, blend_backward, blend_forward, rows_to_attr_major,
+)
+from mtgs_torch.raster.chunk_math import MAX_CH, NUM_GEOM, round8
 from mtgs_torch.raster.expand_fused import expand_fused, fused_fits, slot_bits
 from mtgs_torch.raster.projection import project_gaussians
 from mtgs_torch.raster.segment_sum import dense_segment_sum
@@ -50,6 +70,7 @@ class RasterizeConfig:
     rasterize_mode: str = "classic"      # "classic" | "antialiased"
     render_mode: str = "RGB"             # "RGB" | "RGB+D" | "RGB+ED" | "D" | "ED"
     max_intersections: int = 1 << 20
+    fused: bool = True                   # False: the classic path everywhere
 
     @property
     def tiles_x(self) -> int:
@@ -62,10 +83,6 @@ class RasterizeConfig:
     @property
     def with_depth(self) -> bool:
         return "D" in self.render_mode
-
-
-def _round8(x: int) -> int:
-    return ((x + 7) // 8) * 8
 
 
 def _gather_fused_fwd(config: RasterizeConfig, table, packed_in, counts_in, depths):
@@ -92,7 +109,7 @@ def _gather_fused_fwd(config: RasterizeConfig, table, packed_in, counts_in, dept
                                    tiles_x=config.tiles_x, num_tiles=num_tiles)
     # keys are unique (the slot is in the low bits): any sort is exact
     key_s, order = torch.sort(key)
-    slab_t = torch.zeros((_round8(nw), padded_capacity(I)), dtype=torch.float32,
+    slab_t = torch.zeros((round8(nw), padded_capacity(I)), dtype=torch.float32,
                          device=table.device)
     slab_t[:, :I] = attrs[:, order]
     return dict(slab_t=slab_t, key_s=key_s, order=order, src=src, perm=perm, total=total)
@@ -103,14 +120,7 @@ def _tile_ranges(key_s, num_tiles: int, max_intersections: int):
     in the JAX package's 128-aligned window convention."""
     q = torch.arange(num_tiles + 1, dtype=torch.int32, device=key_s.device)
     q = q << slot_bits(max_intersections)
-    bounds = torch.searchsorted(key_s, q, out_int32=True)
-    starts, tcounts = bounds[:-1], bounds[1:] - bounds[:-1]
-    tile_offsets = (starts // CHUNK) * CHUNK
-    tile_heads = starts - tile_offsets
-    tile_nchunks = torch.where(
-        tcounts > 0, (tile_heads + tcounts + CHUNK - 1) // CHUNK,
-        torch.zeros_like(tcounts))
-    return tile_offsets, tile_heads, tcounts, tile_nchunks.to(torch.int32)
+    return window_ranges(torch.searchsorted(key_s, q, out_int32=True))
 
 
 class _FusedRasterize(torch.autograd.Function):
@@ -160,6 +170,61 @@ class _FusedRasterize(torch.autograd.Function):
         return None, out[:, :nw], None, None, None, out[:, nw:]
 
 
+class _GatherIntersections(torch.autograd.Function):
+    """table [n, nw] -> the classic slab [round8(nw), cap]: column s holds
+    the table row of input gaussian perm[gidx[s]] (zeros for the sentinel
+    n). Differentiable in `table` and `sink` (absgrad)."""
+
+    @staticmethod
+    def forward(ctx, table, perm, inv_perm, gidx, total, sink):
+        table_pad = torch.cat([table[perm], table.new_zeros((1, table.shape[1]))])
+        slab_t = rows_to_attr_major(table_pad[gidx])
+        ctx.save_for_backward(inv_perm, gidx, total)
+        ctx.nw = table.shape[1]
+        return slab_t
+
+    @staticmethod
+    def backward(ctx, g_slab):
+        inv_perm, gidx, total = ctx.saved_tensors
+        nw, n = ctx.nw, inv_perm.shape[0]
+        # dead slots (total <= s < I) own gaussian n-1 but hold zero rows,
+        # outside every tile's range: keyed to the sentinel, whose column
+        # the segment sum writes without reading them (keyed to n-1, their
+        # run, most of the buffer, would fall to one thread)
+        slot = torch.arange(gidx.shape[0], dtype=torch.int32, device=gidx.device)
+        key = torch.where(slot < total, gidx, torch.full_like(gidx, n))
+        # each gaussian's slots made contiguous, in tile order (the stable
+        # sort keeps the f32 sums' order fixed)
+        key_s, order = torch.sort(key, stable=True)
+        rows = g_slab.new_zeros((round8(nw + 2), gidx.shape[0]))
+        rows[:nw] = g_slab[:nw, order]
+        rows[nw:nw + 2] = rows[:2].abs()
+        seg = attr_major_to_rows(dense_segment_sum(rows, key_s, n))[inv_perm]
+        return seg[:, :nw], None, None, None, None, seg[:, nw:nw + 2]
+
+
+class _Blend(torch.autograd.Function):
+    """The blend of a tile-sorted slab over per-tile ranges: (rgb_tiles
+    [T, c_total, PIX], t_final [T, PIX]); differentiable in the slab."""
+
+    @staticmethod
+    def forward(ctx, config, slab_t, offsets, heads, counts, nchunks, c_total):
+        rgb_tiles, t_final = blend_forward(
+            slab_t, offsets, heads, counts, nchunks, tile_size=config.tile_size,
+            tiles_x=config.tiles_x, c_total=c_total)
+        ctx.config, ctx.c_total = config, c_total
+        ctx.save_for_backward(slab_t, offsets, heads, counts, nchunks, rgb_tiles, t_final)
+        return rgb_tiles, t_final
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_t):
+        config = ctx.config
+        g_slab = blend_backward(
+            *ctx.saved_tensors, g_rgb.contiguous(), g_t.contiguous(),
+            tile_size=config.tile_size, tiles_x=config.tiles_x, c_total=ctx.c_total)
+        return None, g_slab, None, None, None, None, None
+
+
 def rasterize(means, quats, scales, opacities, colors, viewmat, K,
               config: RasterizeConfig, *, tap2d=None,
               absgrad_sink=None) -> Tuple[torch.Tensor, torch.Tensor, dict]:
@@ -181,11 +246,7 @@ def rasterize(means, quats, scales, opacities, colors, viewmat, K,
     if C + int(config.with_depth) > MAX_CH:
         raise ValueError(f"too many channels: {C} (+depth) > {MAX_CH}")
     num_tiles = config.tiles_x * config.tiles_y
-    if not fused_fits(config.max_intersections, num_tiles, N):
-        raise ValueError(
-            f"max_intersections={config.max_intersections} does not fit the fused "
-            "path (a multiple of 256 below 2^24 is needed); the classic path is "
-            "not ported yet")
+    use_fused = config.fused and fused_fits(config.max_intersections, num_tiles, N)
 
     proj = project_gaussians(
         means, quats, scales, viewmat, K, config.width, config.height,
@@ -199,17 +260,26 @@ def rasterize(means, quats, scales, opacities, colors, viewmat, K,
         cols = torch.cat([cols, proj.depths[:, None]], dim=-1)
     c_total = cols.shape[-1]
 
-    with torch.no_grad():
-        # zero-opacity rows (gated-out nodes, padded capacity) never contribute
-        live = proj.valid & (op_eff > 0)
-        packed_in, counts_in = tile_spans(
-            means2d, proj.radii, live, width=config.width, height=config.height,
-            tile_size=config.tile_size, conics=proj.conics, op_eff=op_eff,
-        )
     table = torch.cat([means2d, proj.conics, op_eff[:, None], cols], dim=-1)
     sink = absgrad_sink if absgrad_sink is not None else table.new_zeros((N, 2))
-    rgb_tiles, t_final, n_isect = _FusedRasterize.apply(
-        config, table, packed_in, counts_in, proj.depths.detach(), sink)
+    span_args = (means2d.detach(), proj.radii)
+    span_kw = dict(width=config.width, height=config.height, tile_size=config.tile_size,
+                   conics=proj.conics.detach(), op_eff=op_eff.detach())
+    # zero-opacity rows (gated-out nodes, padded capacity) never contribute
+    live = proj.valid & (op_eff.detach() > 0)
+    if use_fused:
+        with torch.no_grad():
+            packed_in, counts_in = tile_spans(*span_args, live, **span_kw)
+        rgb_tiles, t_final, n_isect = _FusedRasterize.apply(
+            config, table, packed_in, counts_in, proj.depths.detach(), sink)
+    else:
+        b = bin_gaussians(*span_args, proj.depths.detach(), live,
+                          max_intersections=config.max_intersections, **span_kw)
+        slab_t = _GatherIntersections.apply(table, b.perm, b.inv_perm, b.gidx,
+                                            b.n_intersections, sink)
+        rgb_tiles, t_final = _Blend.apply(config, slab_t, b.tile_offsets, b.tile_heads,
+                                          b.tile_counts, b.tile_nchunks, c_total)
+        n_isect = b.n_intersections
 
     render, alpha = _assemble_image(rgb_tiles, t_final, config, c_total)
     info = dict(

@@ -50,6 +50,8 @@ class TrainerConfig:
     tile_size: int = 32
     max_intersections: int = 1 << 21
     rasterize_mode: str = "antialiased"
+    # the rasterizer's fused path where it fits (else, and when False, the classic path)
+    fused: bool = True
     max_steps: int = 30001
     predict_normals: bool = True
     background_color: float = 0.0
@@ -83,7 +85,7 @@ class TrainerConfig:
         return RasterizeConfig(
             width=self.width, height=self.height, tile_size=self.tile_size,
             max_intersections=self.max_intersections,
-            rasterize_mode=self.rasterize_mode, render_mode="RGB+ED",
+            rasterize_mode=self.rasterize_mode, render_mode="RGB+ED", fused=self.fused,
         )
 
     def replace(self, **kw) -> "TrainerConfig":

@@ -16,6 +16,7 @@ from mtgs_torch import configs
 from mtgs_torch.eval import pipeline
 from mtgs_torch.models.gaussians import init_node_from_points
 from mtgs_torch.models.scene_graph import init_scene
+from mtgs_torch.tools import render
 from mtgs_torch.train import trainer
 
 PKG = Path(mtgs_torch.__file__).parent
@@ -29,6 +30,7 @@ def all_modules():
 def test_importing_the_port_loads_no_jax():
     mods = all_modules()
     assert "mtgs_torch.eval.pipeline" in mods and "mtgs_torch.raster.blend" in mods
+    assert "mtgs_torch.tools.render" in mods and "mtgs_torch.raster.expand_pairs" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -89,6 +91,22 @@ def test_entry_points_raise_without_a_card(no_card):
     assert out["rgb"].shape == (16, 32, 3) and float(out["accumulation"].max()) > 0
     res = pipeline.evaluate_scene(params, aux, cfg, [_batch()], device="cpu")
     assert res["num_images"] == 1
+
+
+def test_render_tool_raises_without_a_card(no_card, tmp_path):
+    """The render tool's entry points default to the card as render_view
+    does, and write nothing when there is none."""
+    params, aux = _tiny_scene()
+    cfg = configs.mtgs_config(32, 16).replace(max_intersections=1 << 12)
+    b = _batch()
+    with pytest.raises(RuntimeError, match="cuda"):
+        render.render_trajectory(params, aux, cfg, b.c2w[None], np.zeros(1), b.K, 0,
+                                 tmp_path / "traj", make_video=False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        render.render_dataset(params, aux, cfg, [b], tmp_path / "data")
+    assert not list(tmp_path.rglob("*.png"))
+    out = render.render_dataset(params, aux, cfg, [b], tmp_path / "data", device="cpu")
+    assert len(out) == 3 and all(p.exists() for p in out)
 
 
 def test_forward_only_and_precision_pins():

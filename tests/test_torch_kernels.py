@@ -15,12 +15,14 @@ import pytest
 import torch
 
 from mtgs_torch.raster import cuda_build
-from mtgs_torch.raster.binning import padded_capacity
+from mtgs_torch.raster.binning import padded_capacity, searchsorted_expand
 from mtgs_torch.raster.blend import (
-    blend_backward, blend_backward_plain, blend_forward, blend_forward_plain,
+    attr_major_to_rows, attr_major_to_rows_plain, blend_backward, blend_backward_plain,
+    blend_forward, blend_forward_plain, rows_to_attr_major, rows_to_attr_major_plain,
 )
 from mtgs_torch.raster.chunk_math import CHUNK, NUM_GEOM
 from mtgs_torch.raster.expand_fused import expand_fused, expand_fused_plain
+from mtgs_torch.raster.expand_pairs import expand_pairs
 from mtgs_torch.raster.segment_sum import dense_segment_sum, dense_segment_sum_plain
 
 TOL = 1e-4       # blend: f32 rounding of the same formulation
@@ -239,3 +241,102 @@ def test_segment_sum_kernel_matches_plain(cuda, n, I, n_live, tail):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     last = int(src[total - 1]) + 1
     assert not got[:, last:].any()
+
+
+# (n_live, n_dead, I, tiles_x, tiles_y, total_override): the expansion of
+# the classic path; None keeps the inputs' own total, 0 is an empty view.
+# Totals: 5,230 and 14,902 of I (every pair held), 1,275 of an I that is
+# no multiple of 256, 2,996 of 1,024 (overflow), and the 1920x1080
+# render's tile grid with 5,935,225 pairs of I = 2^23
+PAIRS_CASES = [
+    (800, 200, 1 << 13, 30, 17, None),
+    (2000, 500, 1 << 15, 60, 34, None),
+    (300, 212, 3000, 8, 8, None),
+    (900, 20, 1024, 6, 4, None),
+    (300, 5, 2048, 6, 4, 0),
+    (800_000, 200_000, 1 << 23, 60, 34, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_live,n_dead,I,tiles_x,tiles_y,total", PAIRS_CASES)
+def test_expand_pairs_kernel_matches_plain(cuda, n_live, n_dead, I, tiles_x, tiles_y, total):
+    """Bit-equal to searchsorted_expand on every slot, dead ones included."""
+    _, offsets, packed, own_total = make_expand_inputs(
+        11, n_live=n_live, n_dead=n_dead, nw=1, tiles_x=tiles_x, tiles_y=tiles_y)
+    total = own_total if total is None else total
+    args = [torch.from_numpy(a).to(cuda) for a in (offsets, packed)]
+    args.append(torch.tensor([total], dtype=torch.int32, device=cuda))
+    kw = dict(tiles_x=tiles_x, num_tiles=tiles_x * tiles_y)
+    before = cuda_build.LAUNCHES["expand_pairs"]
+    got = expand_pairs(*args, I, **kw)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["expand_pairs"] == before + 1
+    want = searchsorted_expand(*args, I, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+    live = min(int(total), I)
+    assert (got[0][live:] == tiles_x * tiles_y).all()
+    assert bool((got[0][:live] < tiles_x * tiles_y).all())
+
+
+# (w, cap): the classic path's widths, caps that are not multiples of the
+# kernel's 256-slot blocks, and the 1920x1080 render's slab at I = 2^23
+TRANSPOSE_CASES = [(13, 1000), (15, 70_001), (16, 1_000_001), (13, padded_capacity(1 << 23))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,cap", TRANSPOSE_CASES)
+def test_transpose_kernels_match_plain(cuda, w, cap):
+    """Both transposes bit-equal to theirs: a transpose is a copy."""
+    gen = torch.Generator(device=cuda).manual_seed(w)
+    rows = torch.randn((cap, w), generator=gen, device=cuda)
+    before = dict(cuda_build.LAUNCHES)
+    got = rows_to_attr_major(rows)
+    torch.cuda.synchronize()
+    assert got.shape == ((w + 7) // 8 * 8, cap)
+    assert torch.equal(got, rows_to_attr_major_plain(rows))
+    attrs = torch.randn((w, cap), generator=gen, device=cuda)
+    got = attr_major_to_rows(attrs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, attr_major_to_rows_plain(attrs))
+    assert cuda_build.LAUNCHES["rows_to_attr_major"] == before["rows_to_attr_major"] + 1
+    assert cuda_build.LAUNCHES["attr_major_to_rows"] == before["attr_major_to_rows"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_size,c_total,tiles_x,tiles_y,max_per_tile", BLEND_CASES[1:])
+def test_blends_ignore_dead_slots_holding_real_rows(cuda, tile_size, c_total, tiles_x,
+                                                    tiles_y, max_per_tile):
+    """On the classic path the slots past `total` carry a real gaussian's
+    row (the gather copies gaussian N-1 there) next to the last tile's
+    run, which ends mid-window. Both kernels must leave them out: the
+    same outputs as with zero dead slots, bit for bit, equal to the plain
+    versions, and a zero gradient on every dead slot."""
+    slab, ranges = make_blend_inputs(
+        9, tiles_x=tiles_x, tiles_y=tiles_y, tile_size=tile_size, c_total=c_total,
+        max_per_tile=max_per_tile, deep_tiles=(1,), empty_tiles=(2,))
+    offs, heads, counts, _ = ranges
+    total = int(offs[-1] + heads[-1] + counts[-1])
+    assert total % CHUNK and total < slab.shape[1]  # the last run ends mid-window
+    dead = slab.copy()
+    nw = NUM_GEOM + c_total
+    opaque = slab[:nw, total - 1].copy()
+    opaque[2:5] = [1e-3, 0.0, 1e-3]   # a wide splat over every tile
+    opaque[5] = 0.99
+    dead[:nw, total:] = opaque[:, None]
+    kw = dict(tile_size=tile_size, tiles_x=tiles_x, c_total=c_total)
+    r = [torch.from_numpy(a).to(cuda) for a in ranges]
+    clean, real = torch.from_numpy(slab).to(cuda), torch.from_numpy(dead).to(cuda)
+    fwd = blend_forward(real, *r, **kw)
+    for g, w in zip(fwd, blend_forward(clean, *r, **kw)):
+        assert torch.equal(g, w)
+    assert_blend_close([g.cpu() for g in fwd],
+                       [w.cpu() for w in blend_forward_plain(real, *r, **kw)], "dead slots")
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    cot = [torch.randn(a.shape, generator=gen, device=cuda) for a in fwd]
+    got = blend_backward(real, *r, *fwd, *cot, **kw)
+    assert torch.equal(got, blend_backward(clean, *r, *fwd, *cot, **kw))
+    assert not got[:, total:].any()
+    errs = row_errors(got[:nw], blend_backward_plain(real, *r, *fwd, *cot, **kw)[:nw])
+    assert float(errs.max()) <= GRAD_TOL, errs.tolist()
