@@ -66,13 +66,18 @@ plain PyTorch versions. Phases, each of which raises on failure:
      against the plain path (2e-4);
   5. kernels: each kernel against its plain version, the fused forward two
      at the shapes of one serving view, the backward two at those of one
-     training step, the classic three at a 1920x1080 frame's and a grown
-     training step's, timed with CUDA events (median of 20 after
+     training step (the blend backward also on the faint scene of one more
+     phase-6 step, 21 steps after the opacity reset, where two launches
+     must give equal bits), the classic three at a 1920x1080 frame's and
+     a grown training step's, timed with CUDA events (median of 20 after
      warm-up), with the least time the card could take for the same work.
 
 Prints the card line, the `{"kernels": [...]}` line and, last,
 `{"ok": true, "device": {...}}`; `--out DIR` also writes everything
-measured to DIR/chip_smoke.json. Exits non-zero without a CUDA device.
+measured to DIR/chip_smoke.json; `--ab SOURCE=PATH` also times another
+version of a kernel source (the same C interface) against the
+checkout's at phase 5's inputs (`phase_ab`). Exits non-zero without a
+CUDA device.
 
 Run from the repository root:  python3 chip_smoke.py [--seed 0]
 """
@@ -82,6 +87,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import ctypes
 import dataclasses
 import importlib
 import itertools
@@ -700,6 +706,18 @@ def phase_train(args, dev, state_sd, batches):
     return trainer, res, captured, kernel_grads
 
 
+def capture_faint_step(trainer):
+    """The kernel wrappers' arguments in one more step of the phase-6
+    trainer: the scene 21 steps after the opacity reset, still faint (the
+    blends evaluate most of each tile's pairs), as in the training step
+    that --profile traces after it."""
+    captured = {}
+    with capturing(captured):
+        trainer.train(1)
+    torch.cuda.synchronize()
+    return captured
+
+
 def render_errors(got: dict, want: dict) -> float:
     """Largest error between two renders of one view: absolute in the
     images of VIEW_TOL, relative in depth."""
@@ -943,14 +961,64 @@ def row_errors(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
     return torch.where(scale > 0, err / torch.clamp(scale, min=1e-30), err)
 
 
+def backward_timing(a, kw):
+    """blend_backward on one capture's arguments against its plain version
+    (GRAD_TOL max-scaled per row, the rows past 6 + c_total all zero),
+    timed, with the least time the card could take for the replay of these
+    inputs. Returns (the row's numbers, the kernel's output)."""
+    got = blend.blend_backward(*a, **kw)
+    want = blend.blend_backward_plain(*a, **kw)
+    stats = {}
+    blend.blend_forward_plain(*a[:5], **kw, stats=stats)  # the pairs the replay reaches
+    torch.cuda.synchronize()
+    slab_t, offs, heads, counts, nchunks = a[:5]
+    c_total, T = kw["c_total"], offs.shape[0]
+    nw = NUM_GEOM + c_total
+    errs = row_errors(got[:nw], want[:nw])
+    err = float(errs.max())
+    require(err <= GRAD_TOL and not got[nw:].any(),
+            f"blend_backward: row errors {errs.tolist()} (tol {GRAD_TOL})")
+    n_pix = a[6].numel()
+    # read: the slab columns up to each tile's last evaluated one, the
+    # ranges, rgb, t_final and both cotangents; written: the whole
+    # zero-initialised gradient slab
+    bb_bytes = 4 * (nw * stats["pairs_read"] + 3 * T + (2 * c_total + 2) * n_pix
+                    + got.numel())
+    # per evaluated pair inside the splat's 1/255 support the forward's 14
+    # (sigma, exp, scale: a pixel outside it needs no evaluation, as the
+    # kernel's support boxes show); per composited one: clamp, log1p, log
+    # sum, exp and weight 5, gdot 2 c, the running w gdot, 1 / (1 - alpha)
+    # and ga 10, the colour sums 2 c, and where alpha was not clamped
+    # g_sigma with the five centred moments 13 and g_opac 2
+    bb_ops = (14 * stats["pair_support"] + (30 + 4 * c_total) * stats["pair_blends"]
+              - 15 * stats["pair_clamped"])
+    bb_bound_bytes = 1e3 * bb_bytes / PEAK_BYTES_PER_S
+    bb_bound_ops = 1e3 * bb_ops / PEAK_F32_PER_S
+    row = dict(
+        max_abs_err=float((got - want).abs().max()), max_scaled_err=err,
+        row_errors=errs.tolist(),
+        ms=cuda_ms(lambda: blend.blend_backward(*a, **kw)),
+        plain_ms=cuda_ms(lambda: blend.blend_backward_plain(*a, **kw), reps=3, warmup=1),
+        bound_ms=max(bb_bound_bytes, bb_bound_ops),
+        bound_by="operations" if bb_bound_ops >= bb_bound_bytes else "bytes",
+        shapes=dict(slab=list(slab_t.shape), tiles=T, tile_size=kw["tile_size"],
+                    c_total=c_total, pairs=int(counts.sum()), deepest_tile=int(counts.max())),
+        pairs_read=stats["pairs_read"], pair_evals=stats["pair_evals"],
+        pair_support=stats["pair_support"], pair_blends=stats["pair_blends"],
+        pair_clamped=stats["pair_clamped"],
+        bytes=bb_bytes, ops=bb_ops, bound_bytes_ms=bb_bound_bytes, bound_ops_ms=bb_bound_ops)
+    return row, got
+
+
 @torch.no_grad()
-def phase_kernels(params, aux, cfg, batch, by_path, train_captured, render_captured,
-                  growth_captured, dev):
+def phase_kernels(params, aux, cfg, batch, by_path, train_captured, faint_captured,
+                  render_captured, growth_captured, dev):
     """Each kernel against its plain version: the fused forward two at one
-    serving view's shapes, the backward two at one training step's, the
-    classic three (classic_kernel_rows) at a 1920x1080 frame's and a
-    grown training step's. by_path: {path: launch counts of that path's
-    run}."""
+    serving view's shapes, the backward two at one training step's (the
+    blend backward also at a faint step's, and twice there for equal
+    bits), the classic three (classic_kernel_rows) at a 1920x1080 frame's
+    and a grown training step's. by_path: {path: launch counts of that
+    path's run}."""
     captured = {}
     with capturing(captured):
         render_view(params, aux, cfg, batch, 10**9, device=dev)
@@ -1001,9 +1069,10 @@ def phase_kernels(params, aux, cfg, batch, by_path, train_captured, render_captu
     # furthest intersection any of its pixels evaluates
     b_bytes = 4 * ((NUM_GEOM + c_total) * stats["pairs_read"] + 3 * T
                    + (c_total + 1) * n_pix)
-    # per evaluated (pixel, intersection): sigma 11, exp and scale 3; per
-    # composited one: clamp, log1p, sum, exp, weight, c_total FMAs, log sum
-    b_ops = 14 * stats["pair_evals"] + (6 + 2 * c_total) * stats["pair_blends"]
+    # per evaluated (pixel, intersection) inside the splat's 1/255 support
+    # (outside it none is needed): sigma 11, exp and scale 3; per composited
+    # one: clamp, log1p, sum, exp, weight, c_total FMAs, log sum
+    b_ops = 14 * stats["pair_support"] + (6 + 2 * c_total) * stats["pair_blends"]
     b_bound_bytes = 1e3 * b_bytes / PEAK_BYTES_PER_S
     b_bound_ops = 1e3 * b_ops / PEAK_F32_PER_S
     kernels.append(dict(
@@ -1022,56 +1091,27 @@ def phase_kernels(params, aux, cfg, batch, by_path, train_captured, render_captu
         shapes=dict(slab=list(slab_t.shape), tiles=T, tile_size=kw["tile_size"],
                     c_total=c_total, pairs=n_pairs),
         pairs_read=stats["pairs_read"], pair_evals=stats["pair_evals"],
-        pair_blends=stats["pair_blends"], bytes=b_bytes, ops=b_ops,
+        pair_support=stats["pair_support"], pair_blends=stats["pair_blends"],
+        bytes=b_bytes, ops=b_ops,
         bound_bytes_ms=b_bound_bytes, bound_ops_ms=b_bound_ops))
 
-    # blend_backward: the replay of one training step's blend
-    a, kw = train_captured["blend_backward"]
-    got = blend.blend_backward(*a, **kw)
-    want = blend.blend_backward_plain(*a, **kw)
-    stats = {}
-    blend.blend_forward_plain(*a[:5], **kw, stats=stats)  # the pairs the replay reaches
+    # blend_backward: the replay of one training step's blend, at the bright
+    # start (the phase-6 gradient step) and on the faint scene after the
+    # opacity reset (one more step of the phase-6 trainer)
+    bright, _ = backward_timing(*train_captured["blend_backward"])
+    faint, faint_got = backward_timing(*faint_captured["blend_backward"])
+    a, kw = faint_captured["blend_backward"]
+    again = blend.blend_backward(*a, **kw)
     torch.cuda.synchronize()
-    slab_t, offs, heads, counts, nchunks = a[:5]
-    c_total, T = kw["c_total"], offs.shape[0]
-    nw = NUM_GEOM + c_total
-    errs = row_errors(got[:nw], want[:nw])
-    err = float(errs.max())
-    require(err <= GRAD_TOL and not got[nw:].any(),
-            f"blend_backward: row errors {errs.tolist()} (tol {GRAD_TOL})")
-    n_pix = a[6].numel()
-    # read: the slab columns up to each tile's last evaluated one, the
-    # ranges, rgb, t_final and both cotangents; written: the whole
-    # zero-initialised gradient slab
-    bb_bytes = 4 * (nw * stats["pairs_read"] + 3 * T + (2 * c_total + 2) * n_pix
-                    + got.numel())
-    # per evaluated pair the forward's 14 (sigma, exp, scale); per
-    # composited one: clamp, log1p, log sum, exp and weight 5, gdot 2 c,
-    # the running w gdot, 1 / (1 - alpha) and ga 10, the colour sums 2 c,
-    # and where alpha was not clamped g_sigma with the five centred
-    # moments 13 and g_opac 2
-    bb_ops = (14 * stats["pair_evals"] + (30 + 4 * c_total) * stats["pair_blends"]
-              - 15 * stats["pair_clamped"])
-    bb_bound_bytes = 1e3 * bb_bytes / PEAK_BYTES_PER_S
-    bb_bound_ops = 1e3 * bb_ops / PEAK_F32_PER_S
+    require(torch.equal(faint_got, again), "blend_backward: two launches on the faint "
+            "capture differ")
     kernels.append(dict(
         name="blend_backward", route="cuda", source="mtgs_torch/csrc/blend_backward.cu",
         replaces="mtgs_tpu/raster/blend_pallas.py:462",
         tpu_kernel="mtgs_tpu/raster/blend_pallas.py::blend_backward_pallas",
-        launches=launches["blend_backward"], max_abs_err=float((got - want).abs().max()),
-        max_scaled_err=err, tol=dict(max_scaled=GRAD_TOL), row_errors=errs.tolist(),
-        ms=cuda_ms(lambda: blend.blend_backward(*a, **kw)),
-        plain_ms=cuda_ms(lambda: blend.blend_backward_plain(*a, **kw), reps=3, warmup=1),
-        bound_ms=max(bb_bound_bytes, bb_bound_ops),
-        bound_by="operations" if bb_bound_ops >= bb_bound_bytes else "bytes",
-        library_ms=None,
-        library_note="none: no PyTorch call computes the gradient of a depth-ordered blend",
-        shapes=dict(slab=list(slab_t.shape), tiles=T, tile_size=kw["tile_size"],
-                    c_total=c_total, pairs=int(counts.sum())),
-        pairs_read=stats["pairs_read"], pair_evals=stats["pair_evals"],
-        pair_blends=stats["pair_blends"], pair_clamped=stats["pair_clamped"],
-        bytes=bb_bytes, ops=bb_ops,
-        bound_bytes_ms=bb_bound_bytes, bound_ops_ms=bb_bound_ops))
+        launches=launches["blend_backward"], tol=dict(max_scaled=GRAD_TOL), **bright,
+        at_faint=faint, repeat_bit_equal=True, library_ms=None,
+        library_note="none: no PyTorch call computes the gradient of a depth-ordered blend"))
 
     # dense_segment_sum: one training step's slot rows to per-gaussian sums
     (rows, src, n), _ = train_captured["dense_segment_sum"]
@@ -1105,6 +1145,11 @@ def phase_kernels(params, aux, cfg, batch, by_path, train_captured, render_captu
         k["kernel_ms"] = k["ms"]
         log(f"# kernel {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, "
             f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}), max err {k['max_abs_err']:.3g}")
+        for at in ("at_faint", "at_training"):
+            if at in k:
+                log(f"#   {at}: {k[at]['ms']:.4f} ms (plain {k[at]['plain_ms']:.3f} ms, bound "
+                    f"{k[at]['bound_ms']:.4f} ms by {k[at]['bound_by']}), max err "
+                    f"{k[at]['max_abs_err']:.3g}")
     return kernels
 
 
@@ -1182,6 +1227,73 @@ def classic_kernel_rows(render_captured, growth_captured, launches, dev):
     return rows
 
 
+def build_other(path: Path):
+    """A library built from another version of one of csrc/'s sources (the
+    same C interface), with the port's flags and csrc/ on the include path."""
+    out = cuda_build.BUILD_DIR / f"other_{path.stem}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(cuda_build.CSRC),
+                    "-o", str(out), str(path)], check=True, capture_output=True, text=True)
+    return ctypes.CDLL(str(out))
+
+
+def phase_ab(specs, train_captured, faint_captured, render_captured, growth_captured):
+    """`--ab SOURCE=PATH`: each kernel of another version of a source
+    against the checkout's, on phase 5's captured inputs, in one process:
+    its output held to the checkout kernel's (GRAD_TOL for the blend
+    backward, bit-equal for the transposes), then both timed in the order
+    checkout, other, other, checkout (cuda_ms each)."""
+    def bb(captured):
+        a, kw = captured["blend_backward"]
+        nw = NUM_GEOM + kw["c_total"]
+
+        def same(mine, other):
+            return (float(row_errors(other[:nw], mine[:nw]).max()) <= GRAD_TOL
+                    and not other[nw:].any())
+        return lambda: blend.blend_backward(*a, **kw), same
+
+    def tr(name, captured):
+        x = captured[name][0][0]
+        return lambda: getattr(blend, name)(x), torch.equal
+
+    cases = {
+        "blend_backward.cu": dict(bright=bb(train_captured), faint=bb(faint_captured)),
+        "transpose.cu": dict(
+            rows_to_attr_major_frame=tr("rows_to_attr_major", render_captured),
+            rows_to_attr_major_grown=tr("rows_to_attr_major", growth_captured),
+            attr_major_to_rows_grown=tr("attr_major_to_rows", growth_captured)),
+    }
+    out = []
+    for spec in specs:
+        source, path = spec.split("=", 1)
+        require(source in cases, f"--ab: no cases for {source} (have {sorted(cases)})")
+        libs = dict(checkout=cuda_build.load(source), other=build_other(Path(path)))
+
+        @contextlib.contextmanager
+        def using(which):
+            cuda_build._LIBS[source] = libs[which]
+            try:
+                yield
+            finally:
+                cuda_build._LIBS[source] = libs["checkout"]
+
+        for label, (call, same) in cases[source].items():
+            with using("checkout"):
+                mine = call()
+            with using("other"):
+                other = call()
+            torch.cuda.synchronize()
+            require(same(mine, other), f"--ab {source} {label}: the other version's output "
+                    "differs from the checkout's")
+            ms = dict(checkout=[], other=[])
+            for which in ("checkout", "other", "other", "checkout"):
+                with using(which):
+                    ms[which].append(cuda_ms(call))
+            out.append(dict(source=source, other=path, case=label, ms=ms))
+            log(f"# ab {source} {label}: checkout {ms['checkout']} ms, {path} {ms['other']} ms")
+    return out
+
+
 KERNEL_SYMBOLS = dict(expand_fused="expand_fused_kernel",
                       blend_forward="blend_forward_kernel",
                       blend_backward="blend_backward_kernel",
@@ -1239,6 +1351,10 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="also trace one view and one training step with torch.profiler "
                          "(kernel time by name)")
+    ap.add_argument("--ab", action="append", default=[], metavar="SOURCE=PATH",
+                    help="also time another version of a kernel source (the same C "
+                         "interface, e.g. a parent commit's csrc/transpose.cu) against the "
+                         "checkout's at phase 5's inputs; repeatable")
     ap.add_argument("--out", type=Path, default=None,
                     help="directory to write the full results to (chip_smoke.json)")
     args = ap.parse_args(argv)
@@ -1258,6 +1374,7 @@ def main(argv=None):
     state_sd = (jittered_state(p_sd, a_sd, args.seed), a_sd)
     trainer, train_res, train_captured, fused_grads = phase_train(
         args, dev, state_sd, train_batches)
+    faint_captured = capture_faint_step(trainer)
     classic_res, classic_launches, classic_step_launches = phase_classic(
         params, aux, cfg, batches, train_config(args), state_sd, train_batches[0],
         fused_grads, dev)
@@ -1270,8 +1387,10 @@ def main(argv=None):
     by_path = dict(serving=main_res["launches"], training=train_res["launches"],
                    classic_renders=classic_launches, classic_step=classic_step_launches,
                    render_tool=render_res["launches"], growth=growth_launches)
-    kernels = phase_kernels(params, aux, cfg, batch, by_path, train_captured,
+    kernels = phase_kernels(params, aux, cfg, batch, by_path, train_captured, faint_captured,
                             render_captured, growth_captured, dev)
+    ab = phase_ab(args.ab, train_captured, faint_captured, render_captured,
+                  growth_captured) if args.ab else None
     prof = None
     if args.profile:
         prof = dict(
@@ -1288,7 +1407,7 @@ def main(argv=None):
         args.out.mkdir(parents=True, exist_ok=True)
         summary = dict(card=card, build_seconds=build_s, goldens=goldens, main=main_res,
                        train=train_res, classic=classic_res, render_tool=render_res,
-                       growth=growth_res, kernels=kernels, profile=prof,
+                       growth=growth_res, kernels=kernels, ab=ab, profile=prof,
                        seconds=time.perf_counter() - t_start)
         (args.out / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps({"kernels": kernels}))

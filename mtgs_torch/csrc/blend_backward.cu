@@ -16,62 +16,213 @@
 // and each intersection's sums over the tile's pixels give its gradients
 // g_mx, g_my, g_cA, g_cB, g_cC, g_opac, g_colours (the slab's row order).
 //
-// What bounds it on an H100: like the forward, the (pixel, intersection)
-// pairs the early-exit loop reaches (~14 f32 operations and an exp each)
-// and, per composited pair, ~30 more for the gradient terms plus 13
-// warp-shuffle reductions per intersection; the slab, the forward's
-// outputs and the cotangents are read once and the gradient slab written
-// once. Design:
-//   * one thread block per tile, 256 threads; at tile 32 each thread owns
-//     4 pixels, at tile 16 one;
-//   * batches of 64 intersections are staged into shared memory with
-//     their conic coefficients Q, computed in the forward kernel's order;
-//   * sigma, alpha and the log-space termination are evaluated with the
-//     same __fmul_rn/__fadd_rn sequence and the same expf/log1pf calls as
-//     csrc/blend_forward.cu, so the 1/255, sigma >= 0 and T = 1e-4
-//     decisions fall exactly as they did in the forward on the same card;
-//   * the five geometry sums are taken in the centred form
-//     sum g_sigma (x - mx)^2, (y - my)^2, (x - mx)(y - my), (x - mx),
-//     (y - my) (the plain version's raw moments give the same values but
-//     lose digits to cancellation when a mean lies far from the tile);
-//   * every intersection belongs to one tile, so there is no
-//     read-modify-write of shared windows as on the TPU: a warp reduces
-//     its pixels with shuffles (skipped when no lane composited), each
-//     warp leaves its partial in shared memory, and one thread per
-//     intersection adds the 8 partials in a fixed order and writes the
-//     slot once: the result does not depend on scheduling;
-//   * the block stops once __syncthreads_count sees no live pixel; the
-//     slots it never reaches keep the zeros the wrapper allocated.
+// What bounds it on an H100. The least time is set by bytes (the slab
+// columns up to each tile's last evaluated one, the forward's outputs,
+// the cotangents, the [W, cap] gradient slab written once) or by the
+// operations (14 per evaluated pair inside the splat's 1/255 support,
+// 30 + 4c per composited one); see chip_smoke.py's bb_bytes / bb_ops.
+// What sets the time is the deepest
+// tile's chain: each pixel walks the tile's intersections in order, and
+// the earlier kernel held all 1,024 pixels of a tile in one block of 256
+// threads on one SM. It spent ~1,100 SM cycles per intersection of that
+// chain: 8 warps x 13 sums x 5 shuffle steps = 520 shuffles (one warp
+// shuffle per clock per SM) and the 1,024 pixels' arithmetic (~14 + 30 +
+// 4c f32 operations, expf, log1pf, a second expf and a reciprocal). A
+// faint scene (opacities near 0.01: the start of training and the stretch
+// after each opacity reset) reaches every one of a deep tile's ~30-36k
+// pairs, and that tile's one SM set the kernel's time. Design:
+//   * a tile's pixels are split across a thread-block cluster of C = 4
+//     blocks of 128 threads, two pixels a thread (tile 16 keeps its 256
+//     pixels in one block, C = 1). A warp's 64 pixels are an 8 x 8 block
+//     of the tile, and the tile's warps are interleaved over the
+//     cluster's blocks. Every block walks the tile's whole list front to
+//     back for its pixels, so each pixel's chain is the forward's: its
+//     __fmul_rn/__fadd_rn sigma, expf, log1p_neg and cut-offs (shared
+//     through blend_math.cuh), the running log_all and wg_cum, and every
+//     1/255, sigma >= 0 and T = 1e-4 decision falls exactly as in
+//     csrc/blend_forward.cu. No chunk start state is needed (splitting
+//     the list instead would need each chunk's start transmittance, and
+//     would evaluate the pairs the early exit skips);
+//   * the wrapper launches the tiles deepest first, so the deep chains do
+//     not wait for a free SM behind shallow tiles;
+//   * batches of 64 intersections: each block copies a batch's slab
+//     columns into shared memory with cp.async one batch ahead, and
+//     stages their conic coefficients Q (in the forward kernel's order)
+//     and each one's support box (support_box, in double precision): the
+//     pixel rows and columns outside which its alpha cannot reach 1/255.
+//     A warp walks only the intersections whose box meets its 8 x 8
+//     pixels (a 64-bit ballot); a faint deep tile's splats each cover a
+//     small part of it, so most (pixel, intersection) pairs are never
+//     evaluated, and no decision changes;
+//   * a warp carries two intersections at a time for its two pixels a
+//     lane: the four sigmas and expfs, and, once a lane passes the 1/255
+//     test, the logarithms (blend_math.cuh's log1p_neg, which the forward
+//     also takes, with no branch) are independent, only each pixel's
+//     running sums are taken in order; the gradient terms (T, the
+//     weight, 1 / (1 - alpha)) use the fast exp and division, which
+//     change rounding only;
+//   * a lane adds its two pixels' terms first; the two intersections'
+//     2 x (6 + c) sums, padded to 2 x 16, are then reduced across the
+//     warp by a transpose-reduce: at each of the 5 butterfly steps a lane
+//     sends half of its remaining sums and keeps the other half: 16 + 8 +
+//     4 + 2 + 1 = 31 shuffles for two intersections of 64 pixels, where
+//     the earlier kernel spent 13 x 5 = 65 on one intersection of 128;
+//     lane l ends with sum l & 15 of intersection l >> 4. A warp where no
+//     lane composited skips it;
+//   * each warp leaves its totals in shared memory; at the end of the
+//     batch the block adds, in warp order, the totals of the warps that
+//     took each intersection; after one cluster.sync, block r adds the C
+//     blocks' totals in rank order (distributed shared memory) for its
+//     share of the batch and writes each gradient column once. The block
+//     totals are double-buffered, so the one barrier also orders the next
+//     batch's writes after the reads. No atomics: two launches give the
+//     same bits;
+//   * early exit across the cluster: each block publishes its live-pixel
+//     count beside its totals and every block adds the C counts after the
+//     batch's cluster.sync, so all leave after the same batch, through one
+//     last cluster.sync (no block's shared memory goes while another may
+//     read it). The slots never reached keep the zeros the wrapper
+//     allocated;
+//   * launch bounds keep five blocks of 128 threads an SM resident (at
+//     most 102 registers a thread).
 
+#include <cooperative_groups.h>
+#include <math.h>
 #include <cuda_runtime.h>
+
+#include "blend_math.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBatch = 64;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.999f;
-constexpr float kLogTEps = -9.210340371976182f;  // log(1e-4)
+using mtgs::kAlphaMax;
+using mtgs::kAlphaMin;
+using mtgs::kLogTEps;
+using mtgs::log1p_neg;
 
-template <int CT, int PPT>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kCluster32 = 4;  // cluster size at tile 32 (tile 16: 1)
+constexpr int kBatch = 64;     // intersections staged at once (a warp's 64-bit mask)
+constexpr int kSums = 16;      // sums per intersection, padded for the transpose-reduce
+constexpr int kPix = 2;        // pixels a thread
+constexpr int kWarpW = 8;      // a warp's pixels: kWarpW x (32 kPix / kWarpW)
+constexpr int kGroup = 2;      // intersections a warp carries at once (even)
+constexpr int kMinBlocks = 5;  // resident blocks of 128 threads an SM (at most 102 registers)
+constexpr unsigned kFull = 0xffffffffu;
+
+// One butterfly step of the transpose-reduce: lanes with `bit` set keep
+// the upper half of their 2 H sums, the others the lower half; each adds
+// the half its partner sent.
+template <int H>
+__device__ __forceinline__ void fold(float (&v)[2 * kSums], int lane, int bit) {
+  const bool up = (lane & bit) != 0;
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    const float send = up ? v[j] : v[j + H];
+    const float keep = up ? v[j + H] : v[j];
+    v[j] = keep + __shfl_xor_sync(kFull, send, bit);
+  }
+}
+
+// Warp totals of the 16 sums of two intersections in 31 shuffles: returns
+// sum (lane & 15) of intersection (lane >> 4).
+__device__ __forceinline__ float transpose_reduce(float (&v)[2 * kSums], int lane) {
+  fold<16>(v, lane, 16);
+  fold<8>(v, lane, 8);
+  fold<4>(v, lane, 4);
+  fold<2>(v, lane, 2);
+  fold<1>(v, lane, 1);
+  return v[0];
+}
+
+// Where in a tile a splat may composite. A pixel composites only where
+// the forward's rounded sigma = q0 x^2 + q1 y^2 + q2 x y + q3 x + q4 y +
+// q5 satisfies op expf(-sigma) >= 1/255, i.e. sigma <= log(255 op) up to
+// the rounding of expf and the product. On a row y the exact quadratic
+// (in the float q's) is at least its minimum over every real x, m(y) =
+// A y^2 + B y + C, and the rounded sigma lies within 6 ulps of the sum of
+// its terms' magnitudes (S) of it. So a row where m(y) > lim = log(255
+// op) + 1e-3 + 1e-5 S composites nothing; the same holds for columns
+// with x and y swapped. support_range gives the closed interval of the
+// other rows (or columns), widened, in double precision: (-inf, inf)
+// where the conic is degenerate (nothing is left out), an empty one where
+// no pixel can reach 1/255. Leaving out a warp whose pixels lie outside
+// the box changes no decision.
+__device__ void support_range(double qa, double qb, double q2, double qd, double qe,
+                              double q5, double lim, float& lo, float& hi) {
+  lo = -INFINITY;
+  hi = INFINITY;
+  if (!(qa > 0.0)) return;
+  const double h = 0.25 / qa;
+  const double A = qb - q2 * q2 * h;
+  const double B = qe - 2.0 * q2 * qd * h;
+  const double Cq = q5 - qd * qd * h;
+  if (!(A > 0.0) || !isfinite(B) || !isfinite(Cq)) return;
+  const double disc = B * B - 4.0 * A * (Cq - lim);
+  if (!(disc >= 0.0)) {
+    if (isfinite(disc)) {  // m > lim everywhere
+      lo = INFINITY;
+      hi = -INFINITY;
+    }
+    return;
+  }
+  const double r = sqrt(disc), h2 = 0.5 / A;
+  const double y1 = (-B - r) * h2, y2 = (-B + r) * h2;
+  lo = (float)(y1 - 1e-3 * (1.0 + fabs(y1)));
+  hi = (float)(y2 + 1e-3 * (1.0 + fabs(y2)));
+}
+
+// The box [x0, x1] x [y0, y1] of pixel centres outside which the splat
+// composites nothing (box[0..3] = x0, x1, y0, y1).
+__device__ void support_box(const float (&q)[6], float op, float* box) {
+  box[0] = box[2] = -INFINITY;
+  box[1] = box[3] = INFINITY;
+  if (!(op > 0.0f)) {  // raw = op * e is never >= 1/255
+    box[0] = box[2] = INFINITY;
+    box[1] = box[3] = -INFINITY;
+    return;
+  }
+  const double q0 = q[0], q1 = q[1], q2 = q[2], q3 = q[3], q4 = q[4], q5 = q[5];
+  const double S = 1024.0 * (fabs(q0) + fabs(q1) + fabs(q2)) + 32.0 * (fabs(q3) + fabs(q4))
+                   + fabs(q5);
+  const double lim = (double)logf(255.0f * op) + 1e-3 + 1e-5 * S;
+  if (!isfinite(lim)) return;
+  support_range(q1, q0, q2, q4, q3, q5, lim, box[0], box[1]);  // columns
+  support_range(q0, q1, q2, q3, q4, q5, lim, box[2], box[3]);  // rows
+}
+
+template <int CT, int C, int NT>
+__global__ void __launch_bounds__(NT, kMinBlocks)
 blend_backward_kernel(const float* __restrict__ slab, long long cap,
                       const int* __restrict__ tile_offsets,
                       const int* __restrict__ tile_heads,
                       const int* __restrict__ tile_counts,
+                      const int* __restrict__ tile_order,
                       int tile_size, int tiles_x,
                       const float* __restrict__ rgb, const float* __restrict__ tfin,
                       const float* __restrict__ grgb, const float* __restrict__ gt,
                       float* __restrict__ gout) {
   constexpr int NR = 6 + CT;  // sums per intersection: 5 geometry, opacity, colours
-  __shared__ float q_s[6][kBatch];
-  __shared__ float mloc_s[2][kBatch];
-  __shared__ float op_s[kBatch];
-  __shared__ float col_s[CT][kBatch];
+  constexpr int kWarps = NT / 32;
+  static_assert(NR <= kSums, "too many sums for the transpose-reduce");
+  static_assert(kGroup % 2 == 0, "the transpose-reduce takes intersections in pairs");
+  static_assert(kWarpW <= 16 && 32 * kPix / kWarpW <= 16,
+                "a warp's block fits a 16-pixel tile");
+  // the slab columns of a batch (double-buffered: the next one is copied in
+  // while this one runs) and what the batch's pixels need of each
+  __shared__ float raw_s[2][6 + CT][kBatch];
+  __shared__ __align__(16) float qv_s[kBatch][8];   // Q, opacity, 0: two float4 loads
+  __shared__ __align__(16) float colv_s[kBatch][8];  // colours, 0-padded
+  __shared__ float2 ml_s[kBatch];                     // the mean, tile-local
+  __shared__ float box_s[4][kBatch];  // support_box of each intersection
   __shared__ float part_s[kWarps][NR][kBatch];
+  __shared__ float blk_s[2][NR][kBatch];  // the block's totals, double-buffered
+  __shared__ int live_s[2];
+  __shared__ unsigned long long hit_s[kWarps];  // the batch's intersections each warp took
 
-  const int t = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int t = tile_order[blockIdx.x / C];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -81,139 +232,257 @@ blend_backward_kernel(const float* __restrict__ slab, long long cap,
   const long long start = (long long)tile_offsets[t] + tile_heads[t];
   const int count = tile_counts[t];
 
-  float fx[PPT], fy[PPT], fxx[PPT], fyy[PPT], fxy[PPT];
-  float g_c[PPT][CT];
-  float log_all[PPT], wg_cum[PPT], tdot[PPT], gtf[PPT];
-  bool done[PPT];
+  // this warp's pixels: a kWarpW x (32 kPix / kWarpW) block of the tile,
+  // lane l's at rows l / kWarpW + k 32 / kWarpW; the cluster's warps are
+  // interleaved over the tile's blocks
+  const int ww = kWarpW, wh = 32 * kPix / ww;
+  const int g = warp * C + rank, bands = tile_size / ww;
+  const float wx0 = (float)((g % bands) * ww) + 0.5f, wx1 = wx0 + (float)(ww - 1);
+  const float wy0 = (float)((g / bands) * wh) + 0.5f, wy1 = wy0 + (float)(wh - 1);
+  float fx[kPix], fy[kPix], fxx[kPix], fyy[kPix], fxy[kPix];
+  float g_c[kPix][CT], tdot[kPix], gtf[kPix], log_all[kPix], wg_cum[kPix];
+  bool done[kPix];
 #pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    const int p = tid + k * kThreads;
-    fx[k] = (float)(p % tile_size) + 0.5f;
-    fy[k] = (float)(p / tile_size) + 0.5f;
+  for (int k = 0; k < kPix; ++k) {
+    const int px = (g % bands) * ww + lane % ww;
+    const int py = (g / bands) * wh + lane / ww + k * (32 / ww);
+    const int p = py * tile_size + px;
+    fx[k] = (float)px + 0.5f;
+    fy[k] = (float)py + 0.5f;
     fxx[k] = fx[k] * fx[k];
     fyy[k] = fy[k] * fy[k];
     fxy[k] = fx[k] * fy[k];
-    float d = 0.0f;
+    tdot[k] = 0.0f;
 #pragma unroll
     for (int c = 0; c < CT; ++c) {
       const long long o = ((long long)t * CT + c) * pix + p;
       g_c[k][c] = grgb[o];
-      d += g_c[k][c] * rgb[o];
+      tdot[k] += g_c[k][c] * rgb[o];
     }
-    tdot[k] = d;
     gtf[k] = gt[(long long)t * pix + p] * tfin[(long long)t * pix + p];
     log_all[k] = 0.0f;
     wg_cum[k] = 0.0f;
     done[k] = false;
   }
 
-  for (int b0 = 0; b0 < count; b0 += kBatch) {
+  const int share = (kBatch + C - 1) / C;  // intersections a block writes per batch
+  // copies batch b's slab columns into raw_s[into] without holding registers
+  auto fetch = [&](int b, int into) {
+    if (tid < min(kBatch, count - b)) {
+#pragma unroll
+      for (int r = 0; r < 6 + CT; ++r) {
+        const unsigned dst = (unsigned)__cvta_generic_to_shared(&raw_s[into][r][tid]);
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
+                     "l"(slab + r * cap + start + b + tid));
+      }
+    }
+    asm volatile("cp.async.commit_group;");
+  };
+  fetch(0, 0);
+  for (int b0 = 0, buf = 0; b0 < count; b0 += kBatch, buf ^= 1) {
     const int nb = min(kBatch, count - b0);
-    __syncthreads();  // the previous batch is consumed and written
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();  // the batch is in, and the previous one consumed
+    if (b0 + kBatch < count) fetch(b0 + kBatch, buf ^ 1);  // in flight while this one runs
+    const float(&cols)[6 + CT][kBatch] = raw_s[buf];  // this batch's slab columns
     if (tid < nb) {
-      const long long idx = start + b0 + tid;
-      const float mxl = __fsub_rn(slab[idx], ox);
-      const float myl = __fsub_rn(slab[cap + idx], oy);
-      const float cA = slab[2 * cap + idx];
-      const float cB = slab[3 * cap + idx];
-      const float cC = slab[4 * cap + idx];
-      q_s[0][tid] = __fmul_rn(0.5f, cA);
-      q_s[1][tid] = __fmul_rn(0.5f, cC);
-      q_s[2][tid] = cB;
-      q_s[3][tid] = -__fadd_rn(__fmul_rn(cA, mxl), __fmul_rn(cB, myl));
-      q_s[4][tid] = -__fadd_rn(__fmul_rn(cC, myl), __fmul_rn(cB, mxl));
-      q_s[5][tid] = __fadd_rn(
+      const float mxl = __fsub_rn(cols[0][tid], ox);
+      const float myl = __fsub_rn(cols[1][tid], oy);
+      const float cA = cols[2][tid], cB = cols[3][tid], cC = cols[4][tid];
+      float q[6];
+      q[0] = __fmul_rn(0.5f, cA);
+      q[1] = __fmul_rn(0.5f, cC);
+      q[2] = cB;
+      q[3] = -__fadd_rn(__fmul_rn(cA, mxl), __fmul_rn(cB, myl));
+      q[4] = -__fadd_rn(__fmul_rn(cC, myl), __fmul_rn(cB, mxl));
+      q[5] = __fadd_rn(
           __fmul_rn(0.5f, __fadd_rn(__fmul_rn(__fmul_rn(cA, mxl), mxl),
                                     __fmul_rn(__fmul_rn(cC, myl), myl))),
           __fmul_rn(__fmul_rn(cB, mxl), myl));
-      mloc_s[0][tid] = mxl;
-      mloc_s[1][tid] = myl;
-      op_s[tid] = slab[5 * cap + idx];
 #pragma unroll
-      for (int c = 0; c < CT; ++c) col_s[c][tid] = slab[(6 + c) * cap + idx];
+      for (int k = 0; k < 6; ++k) qv_s[tid][k] = q[k];
+      qv_s[tid][6] = cols[5][tid];
+      qv_s[tid][7] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) colv_s[tid][c] = c < CT ? cols[6 + c][tid] : 0.0f;
+      ml_s[tid] = make_float2(mxl, myl);
+      float box[4];
+      support_box(q, cols[5][tid], box);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) box_s[k][tid] = box[k];
     }
     __syncthreads();
 
-    for (int i = 0; i < nb; ++i) {
-      const float q0 = q_s[0][i], q1 = q_s[1][i], q2 = q_s[2][i];
-      const float q3 = q_s[3][i], q4 = q_s[4][i], q5 = q_s[5][i];
-      const float op = op_s[i];
-      const float mxl = mloc_s[0][i], myl = mloc_s[1][i];
-      float v[NR];
+    // the batch's intersections whose support reaches this warp's rows
+    unsigned long long hits = 0;
 #pragma unroll
-      for (int r = 0; r < NR; ++r) v[r] = 0.0f;
-      bool any = false;
+    for (int h = 0; h < 2; ++h) {
+      const int j = lane + 32 * h;
+      const bool hit = j < nb && !(wx1 < box_s[0][j] || wx0 > box_s[1][j] ||
+                                   wy1 < box_s[2][j] || wy0 > box_s[3][j]);
+      hits |= (unsigned long long)__ballot_sync(kFull, hit) << (32 * h);
+    }
+    bool alldone = true;
 #pragma unroll
-      for (int k = 0; k < PPT; ++k) {
-        if (done[k]) continue;
-        float s = __fmul_rn(fxx[k], q0);
-        s = __fadd_rn(s, __fmul_rn(fyy[k], q1));
-        s = __fadd_rn(s, __fmul_rn(fxy[k], q2));
-        s = __fadd_rn(s, __fmul_rn(fx[k], q3));
-        s = __fadd_rn(s, __fmul_rn(fy[k], q4));
-        s = __fadd_rn(s, q5);
-        const float e = expf(-s);
-        const float raw = __fmul_rn(op, e);
-        if (!(s >= 0.0f && raw >= kAlphaMin)) continue;
-        const float alpha = fminf(raw, kAlphaMax);
-        const float L = log1pf(-alpha);
-        const float incl = __fadd_rn(log_all[k], L);
-        if (!(incl > kLogTEps)) {
-          done[k] = true;
-          continue;
-        }
-        const float T = expf(log_all[k]);
-        const float w = alpha * T;
-        float gdot = 0.0f;
+    for (int k = 0; k < kPix; ++k) alldone = alldone && done[k];
+    if (__all_sync(kFull, alldone)) hits = 0;  // saturated pixels evaluate nothing more
+    if (lane == 0) hit_s[warp] = hits;
+    for (unsigned long long todo = hits; todo;) {
+      // the next kGroup of them, carried together: each one's sigma,
+      // alpha and log(1 - alpha) are independent of the others
+      int ii[kGroup];
+      bool val[kGroup], ok[kGroup][kPix], okany = false;
+      float e[kGroup][kPix], raw[kGroup][kPix];
 #pragma unroll
-        for (int c = 0; c < CT; ++c) gdot += g_c[k][c] * col_s[c][i];
-        wg_cum[k] += w * gdot;
-        const float inv = 1.0f / (1.0f - alpha);
-        const float ga = T * gdot - (tdot[k] - wg_cum[k]) * inv - gtf[k] * inv;
-        if (raw <= kAlphaMax) {
-          const float gs = -alpha * ga;
-          const float dx = fx[k] - mxl;
-          const float dy = fy[k] - myl;
-          v[0] += gs * dx * dx;
-          v[1] += gs * dy * dy;
-          v[2] += gs * dx * dy;
-          v[3] += gs * dx;
-          v[4] += gs * dy;
-          v[5] += e * ga;
-        }
+      for (int u = 0; u < kGroup; ++u) {
+        val[u] = todo != 0;
+        const int i = val[u] ? __ffsll((long long)todo) - 1 : 0;
+        todo &= todo - 1;
+        ii[u] = i;
+        const float4 qa = *reinterpret_cast<const float4*>(&qv_s[i][0]);
+        const float4 qb = *reinterpret_cast<const float4*>(&qv_s[i][4]);
 #pragma unroll
-        for (int c = 0; c < CT; ++c) v[6 + c] += g_c[k][c] * w;
-        log_all[k] = incl;
-        any = true;
-      }
-      if (__any_sync(0xffffffffu, any)) {
-#pragma unroll
-        for (int r = 0; r < NR; ++r) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            v[r] += __shfl_down_sync(0xffffffffu, v[r], off);
+        for (int k = 0; k < kPix; ++k) {
+          float s = __fmul_rn(fxx[k], qa.x);
+          s = __fadd_rn(s, __fmul_rn(fyy[k], qa.y));
+          s = __fadd_rn(s, __fmul_rn(fxy[k], qa.z));
+          s = __fadd_rn(s, __fmul_rn(fx[k], qa.w));
+          s = __fadd_rn(s, __fmul_rn(fy[k], qb.x));
+          s = __fadd_rn(s, qb.y);
+          e[u][k] = expf(-s);
+          raw[u][k] = __fmul_rn(qb.z, e[u][k]);
+          ok[u][k] = val[u] && s >= 0.0f && raw[u][k] >= kAlphaMin;
+          okany = okany || (ok[u][k] && !done[k]);
         }
       }
-      if (lane == 0) {
+      bool comp[kGroup][kPix], any = false;
+      float lb[kGroup][kPix], alpha[kGroup][kPix];
 #pragma unroll
-        for (int r = 0; r < NR; ++r) part_s[warp][r][i] = v[r];
+      for (int u = 0; u < kGroup; ++u) {
+#pragma unroll
+        for (int k = 0; k < kPix; ++k) {
+          comp[u][k] = false;
+          lb[u][k] = log_all[k];
+          alpha[u][k] = fminf(raw[u][k], kAlphaMax);
+        }
+      }
+      if (__any_sync(kFull, okany)) {
+        float L[kGroup][kPix];
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u) {
+#pragma unroll
+          for (int k = 0; k < kPix; ++k) L[u][k] = log1p_neg(alpha[u][k]);
+        }
+#pragma unroll
+        for (int k = 0; k < kPix; ++k) {
+#pragma unroll
+          for (int u = 0; u < kGroup; ++u) {
+            const float incl = __fadd_rn(log_all[k], L[u][k]);
+            const bool live = ok[u][k] && !done[k];
+            const bool stop = live && !(incl > kLogTEps);
+            comp[u][k] = live && !stop;
+            done[k] = done[k] || stop;
+            lb[u][k] = log_all[k];
+            if (comp[u][k]) log_all[k] = incl;
+            any = any || comp[u][k];
+          }
+        }
+        any = __any_sync(kFull, any);
+      }
+      float v[kGroup][kSums];
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+#pragma unroll
+        for (int r = 0; r < kSums; ++r) v[u][r] = 0.0f;
+      }
+      if (any) {
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u) {
+          const int i = ii[u];
+          float col[8];
+          *reinterpret_cast<float4*>(&col[0]) = *reinterpret_cast<const float4*>(&colv_s[i][0]);
+          *reinterpret_cast<float4*>(&col[4]) = *reinterpret_cast<const float4*>(&colv_s[i][4]);
+          const float2 ml = ml_s[i];
+#pragma unroll
+          for (int k = 0; k < kPix; ++k) {
+            const float T = __expf(lb[u][k]);
+            const float w = alpha[u][k] * T;
+            float gdot = 0.0f;
+#pragma unroll
+            for (int c = 0; c < CT; ++c) gdot += g_c[k][c] * col[c];
+            if (comp[u][k]) wg_cum[k] += w * gdot;
+            const float inv = __fdividef(1.0f, 1.0f - alpha[u][k]);
+            const float ga = T * gdot - (tdot[k] - wg_cum[k]) * inv - gtf[k] * inv;
+            const bool geo = comp[u][k] && raw[u][k] <= kAlphaMax;
+            const float gs = geo ? -alpha[u][k] * ga : 0.0f;
+            const float dx = fx[k] - ml.x;
+            const float dy = fy[k] - ml.y;
+            v[u][0] += gs * dx * dx;
+            v[u][1] += gs * dy * dy;
+            v[u][2] += gs * dx * dy;
+            v[u][3] += gs * dx;
+            v[u][4] += gs * dy;
+            v[u][5] += geo ? e[u][k] * ga : 0.0f;
+#pragma unroll
+            for (int c = 0; c < CT; ++c) v[u][6 + c] += comp[u][k] ? g_c[k][c] * w : 0.0f;
+          }
+        }
+      }
+      // the warp's totals, two intersections a transpose
+#pragma unroll
+      for (int u = 0; u < kGroup; u += 2) {
+        float total = 0.0f;
+        if (any) {
+          float t[2 * kSums];
+#pragma unroll
+          for (int r = 0; r < kSums; ++r) {
+            t[r] = v[u][r];
+            t[kSums + r] = v[u + 1][r];
+          }
+          total = transpose_reduce(t, lane);
+        }
+        const bool hi = lane >= 16;
+        const int r = lane & 15;
+        if ((hi ? val[u + 1] : val[u]) && r < NR) part_s[warp][r][hi ? ii[u + 1] : ii[u]] = total;
       }
     }
-    __syncthreads();
+    // the block's live pixels, and the end of its warps' writes
+    bool anylive = false;
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) anylive = anylive || !done[k];
+    const int live = __syncthreads_count(anylive ? 1 : 0);
+    if (tid == 0) live_s[buf] = live;
+    unsigned long long took[kWarps];
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) took[w] = hit_s[w];
+    for (int k = tid; k < NR * nb; k += NT) {
+      const int r = k / nb, i = k - r * nb;
+      float sum = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float x = part_s[w][r][i];  // written only by the warps that took i
+        sum += (took[w] >> i & 1) ? x : 0.0f;
+      }
+      blk_s[buf][r][i] = sum;
+    }
+    cluster.sync();  // every block's totals and count of this batch are in
 
-    if (tid < nb) {
+    int live_all = 0;
+#pragma unroll
+    for (int q = 0; q < C; ++q) live_all += cluster.map_shared_rank(&live_s[0], q)[buf];
+    const int i = rank * share + tid;
+    if (tid < share && i < nb) {
       float a[NR];
 #pragma unroll
-      for (int r = 0; r < NR; ++r) {
-        float sum = 0.0f;
+      for (int r = 0; r < NR; ++r) a[r] = 0.0f;
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) sum += part_s[w][r][tid];
-        a[r] = sum;
+      for (int q = 0; q < C; ++q) {
+        const float* rb = cluster.map_shared_rank(&blk_s[buf][0][0], q);
+#pragma unroll
+        for (int r = 0; r < NR; ++r) a[r] += rb[r * kBatch + i];
       }
-      const long long idx = start + b0 + tid;
-      const float cA = slab[2 * cap + idx];
-      const float cB = slab[3 * cap + idx];
-      const float cC = slab[4 * cap + idx];
+      const long long idx = start + b0 + i;
+      const float cA = cols[2][i], cB = cols[3][i], cC = cols[4][i];
       gout[idx] = -(cA * a[3] + cB * a[4]);
       gout[cap + idx] = -(cC * a[4] + cB * a[3]);
       gout[2 * cap + idx] = 0.5f * a[0];
@@ -223,38 +492,59 @@ blend_backward_kernel(const float* __restrict__ slab, long long cap,
 #pragma unroll
       for (int c = 0; c < CT; ++c) gout[(6 + c) * cap + idx] = a[6 + c];
     }
-    int live = 0;
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) live |= done[k] ? 0 : 1;
-    if (__syncthreads_count(live) == 0) break;
+    if (live_all == 0) break;  // the same decision in every block of the cluster
   }
+  asm volatile("cp.async.wait_all;" ::: "memory");  // no copy lands after the block
+  cluster.sync();  // no block leaves while another may still read its shared memory
+}
+
+template <int CT, int PIX, int C>
+cudaError_t launch_cluster(const float* slab, long long cap, const int* offs,
+                           const int* heads, const int* counts, const int* order,
+                           int num_tiles, int tile_size, int tiles_x, const float* rgb,
+                           const float* tfin, const float* grgb, const float* gt,
+                           float* gout, cudaStream_t stream) {
+  constexpr int NT = PIX / (C * kPix);  // kPix pixels a thread
+  static_assert(NT % 32 == 0 && NT <= 1024, "a block holds whole warps");
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)num_tiles * C);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, blend_backward_kernel<CT, C, NT>, slab, cap, offs, heads,
+                            counts, order, tile_size, tiles_x, rgb, tfin, grgb, gt, gout);
 }
 
 template <int CT>
-void launch_ct(const float* slab, long long cap, const int* offs, const int* heads,
-               const int* counts, int num_tiles, int tile_size, int tiles_x,
-               const float* rgb, const float* tfin, const float* grgb,
-               const float* gt, float* gout, cudaStream_t stream) {
-  if (tile_size == 32) {
-    blend_backward_kernel<CT, 4><<<num_tiles, kThreads, 0, stream>>>(
-        slab, cap, offs, heads, counts, tile_size, tiles_x, rgb, tfin, grgb, gt,
-        gout);
-  } else {
-    blend_backward_kernel<CT, 1><<<num_tiles, kThreads, 0, stream>>>(
-        slab, cap, offs, heads, counts, tile_size, tiles_x, rgb, tfin, grgb, gt,
-        gout);
-  }
+cudaError_t launch_ct(const float* slab, long long cap, const int* offs, const int* heads,
+                      const int* counts, const int* order, int num_tiles, int tile_size,
+                      int tiles_x, const float* rgb, const float* tfin, const float* grgb,
+                      const float* gt, float* gout, cudaStream_t stream) {
+  if (tile_size == 32)
+    return launch_cluster<CT, 1024, kCluster32>(slab, cap, offs, heads, counts, order,
+                                                num_tiles, tile_size, tiles_x, rgb, tfin,
+                                                grgb, gt, gout, stream);
+  return launch_cluster<CT, 256, 1>(slab, cap, offs, heads, counts, order, num_tiles,
+                                    tile_size, tiles_x, rgb, tfin, grgb, gt, gout, stream);
 }
 
 }  // namespace
 
 // Writes rows 0 .. 5 + c_total of the zero-initialised gradient slab gout
-// [w_rows, cap]. Returns cudaGetLastError() after the launch (0 on
-// success); 1 for a tile size, channel count or row count it does not take.
+// [w_rows, cap]. Returns the launch's cudaError_t, else cudaGetLastError()
+// after it (0 on success); 1 for a tile size, channel count or row count
+// it does not take.
 extern "C" int mtgs_blend_backward(const float* slab, long long cap, int w_rows,
                                    const int* tile_offsets, const int* tile_heads,
-                                   const int* tile_counts, int num_tiles,
-                                   int tile_size, int tiles_x, int c_total,
+                                   const int* tile_counts, const int* tile_order,
+                                   int num_tiles, int tile_size, int tiles_x, int c_total,
                                    const float* rgb, const float* tfin,
                                    const float* grgb, const float* gt, float* gout,
                                    void* stream) {
@@ -262,10 +552,12 @@ extern "C" int mtgs_blend_backward(const float* slab, long long cap, int w_rows,
   if (6 + c_total > w_rows) return 1;
   if (num_tiles == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
 #define MTGS_CT_CASE(N)                                                          \
   case N:                                                                        \
-    launch_ct<N>(slab, cap, tile_offsets, tile_heads, tile_counts, num_tiles,    \
-                 tile_size, tiles_x, rgb, tfin, grgb, gt, gout, s);              \
+    err = launch_ct<N>(slab, cap, tile_offsets, tile_heads, tile_counts,         \
+                       tile_order, num_tiles, tile_size, tiles_x, rgb, tfin,     \
+                       grgb, gt, gout, s);                                       \
     break;
   switch (c_total) {
     MTGS_CT_CASE(1) MTGS_CT_CASE(2) MTGS_CT_CASE(3) MTGS_CT_CASE(4)
@@ -274,5 +566,6 @@ extern "C" int mtgs_blend_backward(const float* slab, long long cap, int w_rows,
       return 1;
   }
 #undef MTGS_CT_CASE
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

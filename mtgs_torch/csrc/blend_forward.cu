@@ -23,7 +23,8 @@
 //     (chunk_math.sigma), so the alpha >= 1/255 and sigma >= 0 cut-offs
 //     fall on the same side as there;
 //   * termination in log space like the JAX kernel: the running sum of
-//     log1p(-alpha) over contributing gaussians; a pixel stops before the
+//     log1p(-alpha) (blend_math.cuh's log1p_neg and cut-offs, shared
+//     with the backward) over contributing gaussians; a pixel stops before the
 //     gaussian that would take it to <= log(1e-4); t_final is
 //     exp(sum over composited gaussians);
 //   * the block leaves its batch loop once __syncthreads_count sees no
@@ -34,13 +35,16 @@
 
 #include <cuda_runtime.h>
 
+#include "blend_math.cuh"
+
 namespace {
+
+using mtgs::kAlphaMax;
+using mtgs::kAlphaMin;
+using mtgs::kLogTEps;
 
 constexpr int kThreads = 256;
 constexpr int kBatch = 128;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.999f;
-constexpr float kLogTEps = -9.210340371976182f;  // log(1e-4)
 
 template <int CT, int PPT>
 __global__ void __launch_bounds__(kThreads)
@@ -123,7 +127,7 @@ blend_forward_kernel(const float* __restrict__ slab, long long cap,
         const float raw = __fmul_rn(op, expf(-s));
         if (!(s >= 0.0f && raw >= kAlphaMin)) continue;
         const float alpha = fminf(raw, kAlphaMax);
-        const float L = log1pf(-alpha);
+        const float L = mtgs::log1p_neg(alpha);
         const float incl = __fadd_rn(log_all[k], L);
         if (incl > kLogTEps) {
           const float w = alpha * expf(log_all[k]);

@@ -4,9 +4,13 @@ from __future__ import annotations
 
 import torch
 
+from mtgs_torch import resolve_device
 
-def init_exposure(num_cameras: int, device="cpu") -> torch.Tensor:
-    """[num_cameras, 3, 4] identity affines."""
+
+def init_exposure(num_cameras: int, device="cuda") -> torch.Tensor:
+    """[num_cameras, 3, 4] identity affines, on the card unless `device`
+    says otherwise."""
+    device = resolve_device(device)
     eye = torch.cat([torch.eye(3), torch.zeros(3, 1)], dim=1)
     return eye.expand(num_cameras, 3, 4).clone().to(device)
 

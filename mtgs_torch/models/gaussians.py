@@ -20,6 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from mtgs_torch import resolve_device
 from mtgs_torch.core.quat import quat_normalize
 from mtgs_torch.core.sh import num_sh_bases, rgb_to_sh
 
@@ -86,12 +87,14 @@ def init_node_from_points(
     seed: int = 0,
     isotropic: bool = False,
     fourier_dim: int = 0,
-    device="cpu",
+    device="cuda",
 ) -> tuple[GaussianNodeParams, NodeAux]:
     """Seed a node from a coloured point cloud (rgb in 0..255): SH dc from
     RGB, kNN mean distance as isotropic log-scale, Shoemake random quats
     from a numpy generator, opacity logit(init_opacity). The same numpy
-    draws as the JAX function, so both packages build the same node."""
+    draws as the JAX function, so both packages build the same node. On
+    the card unless `device` says otherwise; raises without one."""
+    device = resolve_device(device)
     n = len(xyz)
     cap = capacity or node_capacity(n)
     if n > cap:
@@ -155,10 +158,11 @@ def init_skybox_node(
     num_traversals: int = 0,
     multi_feature_rest: bool = False,
     seed: int = 1,
-    device="cpu",
+    device="cuda",
 ) -> tuple[GaussianNodeParams, NodeAux]:
     """Skybox shell init: points on/in a far shell, phi in [pi/4, pi/2],
-    white colour."""
+    white colour. On the card unless `device` says otherwise."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     radius = max(radius, scene_extent * 2.0)
     if skybox_type == "spheric":

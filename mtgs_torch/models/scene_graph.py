@@ -20,6 +20,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from mtgs_torch import resolve_device
 from mtgs_torch.core.quat import quat_mult, quat_normalize, quat_rotate, slerp
 from mtgs_torch.core.sh import sh_basis
 from mtgs_torch.models.gaussians import (
@@ -231,11 +232,13 @@ def init_scene(
     *,
     num_cameras: int = 1,
     num_images: int = 1,
-    device="cpu",
+    device="cuda",
 ) -> Tuple[SceneParams, SceneAux]:
-    """Assemble SceneParams/SceneAux from per-node inits."""
+    """Assemble SceneParams/SceneAux from per-node inits; the appearance
+    and camera-opt leaves on the card unless `device` says otherwise."""
     from mtgs_torch.models.appearance import init_exposure
 
+    device = resolve_device(device)
     params = SceneParams(
         background=background[0],
         skybox=None if skybox is None else skybox[0],

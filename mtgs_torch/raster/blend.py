@@ -51,7 +51,7 @@ def _lib_backward():
     fn = cuda_build.load("blend_backward.cu").mtgs_blend_backward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, ctypes.c_longlong, i, p, p, p, i, i, i, i, p, p, p, p, p, p]
+        fn.argtypes = [p, ctypes.c_longlong, i, p, p, p, p, i, i, i, i, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -240,9 +240,12 @@ def blend_backward(slab_t, tile_offsets, tile_heads, tile_counts, tile_nchunks,
     g_slab = torch.zeros((W, cap), dtype=torch.float32, device=slab_t.device)
     ranges = [r.contiguous() for r in ranges]
     dense = [a.contiguous() for a in (rgb_tiles, t_final, g_rgb, g_t)]
+    # deepest tiles first: the card holds a fraction of the grid's blocks at
+    # once, and a deep tile started last would run on alone
+    order = torch.argsort(tile_counts, descending=True).to(torch.int32)
     err = _lib_backward()(
         slab_t.data_ptr(), cap, W, ranges[0].data_ptr(), ranges[1].data_ptr(),
-        ranges[2].data_ptr(), T, tile_size, tiles_x, c_total,
+        ranges[2].data_ptr(), order.data_ptr(), T, tile_size, tiles_x, c_total,
         *(a.data_ptr() for a in dense), g_slab.data_ptr(),
         torch.cuda.current_stream(slab_t.device).cuda_stream,
     )

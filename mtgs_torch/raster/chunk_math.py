@@ -100,12 +100,14 @@ def forward_chunk(slab, origin_x, origin_y, F, lane_lo, lane_hi,
     log_t_all / log_t_out [A, PIX], rgb [A, c, PIX]. Returns the new
     (log_t_all, log_t_out, rgb). If `stats` is a dict, stats["pair_evals"]
     is incremented by the (pixel, intersection) pairs a front-to-back
-    loop with early exit must evaluate, stats["pair_blends"] by those of
-    them that are composited (stats["pair_clamped"] by those composited at
-    alpha clamped to ALPHA_MAX), and stats["pairs_read"] by the
-    intersections each tile must read: those up to the furthest one any
-    of its pixels evaluates (summed over chunks, each tile's furthest
-    needed index less its start, plus one).
+    loop with early exit must evaluate, stats["pair_support"] by those of
+    them whose alpha reaches 1/255 (the rest lie outside the splat's
+    support, which a kernel can bound without evaluating them),
+    stats["pair_blends"] by those that are composited, stats["pair_clamped"]
+    by those composited at alpha clamped to ALPHA_MAX, and
+    stats["pairs_read"] by the intersections each tile must read: those up
+    to the furthest one any of its pixels evaluates (summed over chunks,
+    each tile's furthest needed index less its start, plus one).
     """
     c = _chunk_common(slab, origin_x, origin_y, F, lane_lo, lane_hi, log_t_all)
     L, incl, mask, in_range = c["L"], c["incl"], c["mask"], c["in_range"]
@@ -115,6 +117,8 @@ def forward_chunk(slab, origin_x, origin_y, F, lane_lo, lane_hi,
     if stats is not None:
         live_before = ((incl - L) > LOG_T_EPS) & in_range[:, None, :]
         stats["pair_evals"] = stats.get("pair_evals", 0) + int(live_before.sum())
+        support = int((live_before & contrib).sum())
+        stats["pair_support"] = stats.get("pair_support", 0) + support
         blended = int((contrib & (mask > 0)).sum())
         stats["pair_blends"] = stats.get("pair_blends", 0) + blended
         clamped = int((contrib & (mask > 0) & (c["raw"] > ALPHA_MAX)).sum())

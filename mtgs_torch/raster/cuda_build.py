@@ -2,9 +2,9 @@
 
 Each `.cu` file is compiled on first use by `nvcc` for `sm_90a` into a
 shared library with a plain C interface, loaded through `ctypes`. The
-library name carries a hash of the source and the flags, so an edited
-source rebuilds and a fresh checkout builds from its own sources. All
-sources build in parallel (one `nvcc` process each). Nothing here runs at
+library name carries a hash of the source, the shared headers and the
+flags, so an edited source rebuilds and a fresh checkout builds from its
+own sources. All sources build in parallel (one `nvcc` process each). Nothing here runs at
 import time: the CPU tests import every module.
 
 `LAUNCHES` counts kernel launches per kernel name; each wrapper adds one
@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mtgs_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("blend_forward.cu", "expand_fused.cu", "blend_backward.cu", "segment_sum.cu",
            "expand_pairs.cu", "transpose.cu")
 
@@ -52,13 +52,17 @@ def _nvcc() -> str:
 
 def _lib_path(source: str) -> Path:
     h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
 def build(sources: Iterable[str] = SOURCES) -> Dict[str, Path]:
     """Compile every source whose library is missing, all at once; returns
-    {source: library path}. Raises with nvcc's output if a build fails."""
+    {source: library path}. nvcc's output (ptxas' registers and shared
+    memory of each kernel) is kept beside each library as `.log`. Raises
+    with nvcc's output if a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {s: _lib_path(s) for s in sources}
     procs = {}
@@ -75,6 +79,7 @@ def build(sources: Iterable[str] = SOURCES) -> Dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"--- nvcc {s} (exit {proc.returncode}) ---\n{log}")
             continue
+        paths[s].with_suffix(".log").write_text(log)
         os.replace(tmp, paths[s])  # atomic: concurrent builds agree
     if failed:
         raise RuntimeError("mtgs_torch: kernel build failed\n" + "\n".join(failed))

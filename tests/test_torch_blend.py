@@ -78,10 +78,26 @@ def test_blend_plain_stats_count_the_early_exit():
     rgb, t_final = blend_forward_plain(
         torch.from_numpy(slab), *(torch.from_numpy(r) for r in ranges),
         tile_size=16, tiles_x=2, c_total=c_total, stats=stats)
-    assert stats == dict(pair_evals=(2 + 50) * P, pair_blends=(1 + 50) * P,
-                         pair_clamped=P, pairs_read=2 + 50)
+    assert stats == dict(pair_evals=(2 + 50) * P, pair_support=(2 + 50) * P,
+                         pair_blends=(1 + 50) * P, pair_clamped=P, pairs_read=2 + 50)
     np.testing.assert_allclose(t_final[0].numpy(), 1e-3, rtol=1e-4)
     np.testing.assert_allclose(t_final[1].numpy(), 0.99 ** 50, rtol=1e-4)
+
+
+def test_blend_plain_stats_count_the_support():
+    """One narrow splat (conic 2, 0, 2 at the centre of a 16-pixel tile,
+    opacity 0.5): sigma = dx^2 + dy^2, and alpha reaches 1/255 only where
+    that is at most log(127.5) = 4.85, at the 4 x 4 pixels with |dx|, |dy|
+    in {0.5, 1.5}. Every pixel evaluates it; 16 lie in its support."""
+    slab = np.zeros((7, 128), np.float32)
+    slab[:6, 0] = [8.0, 8.0, 2.0, 0.0, 2.0, 0.5]
+    slab[6, 0] = 1.0
+    ranges = [np.array([v], np.int32) for v in (0, 0, 1, 1)]
+    stats = {}
+    blend_forward_plain(torch.from_numpy(slab), *(torch.from_numpy(r) for r in ranges),
+                        tile_size=16, tiles_x=1, c_total=1, stats=stats)
+    assert stats == dict(pair_evals=256, pair_support=16, pair_blends=16, pair_clamped=0,
+                         pairs_read=1)
 
 
 def test_blend_wrapper_uses_plain_on_cpu():

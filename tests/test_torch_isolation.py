@@ -1,6 +1,7 @@
 """mtgs_torch stands alone: it imports neither JAX, flax nor mtgs_tpu, and
 its entry points never fall back to the CPU on their own."""
 
+import dataclasses
 import pkgutil
 import re
 import subprocess
@@ -14,7 +15,8 @@ import torch
 import mtgs_torch
 from mtgs_torch import configs
 from mtgs_torch.eval import pipeline
-from mtgs_torch.models.gaussians import init_node_from_points
+from mtgs_torch.models.appearance import init_exposure
+from mtgs_torch.models.gaussians import init_node_from_points, init_skybox_node
 from mtgs_torch.models.scene_graph import init_scene
 from mtgs_torch.tools import render
 from mtgs_torch.train import trainer
@@ -63,8 +65,8 @@ def _tiny_scene():
     rng = np.random.default_rng(0)
     xyz = np.stack([rng.uniform(-1, 1, 20), rng.uniform(-1, 1, 20),
                     rng.uniform(-6, -3, 20)], -1).astype(np.float32)
-    bg = init_node_from_points(xyz, rng.uniform(0, 255, (20, 3)), capacity=32)
-    return init_scene(bg)
+    bg = init_node_from_points(xyz, rng.uniform(0, 255, (20, 3)), capacity=32, device="cpu")
+    return init_scene(bg, device="cpu")
 
 
 def _batch():
@@ -91,6 +93,28 @@ def test_entry_points_raise_without_a_card(no_card):
     assert out["rgb"].shape == (16, 32, 3) and float(out["accumulation"].max()) > 0
     res = pipeline.evaluate_scene(params, aux, cfg, [_batch()], device="cpu")
     assert res["num_images"] == 1
+    # the public scene builders default to the card as well
+    xyz = np.random.default_rng(1).uniform(-1, 1, (8, 3)).astype(np.float32)
+    rgb = np.full((8, 3), 128.0, np.float32)
+    builders = dict(
+        init_node_from_points=lambda **kw: init_node_from_points(xyz, rgb, **kw),
+        init_skybox_node=lambda **kw: init_skybox_node(num_points=16, **kw),
+        init_exposure=lambda **kw: init_exposure(2, **kw),
+    )
+    for name, build in builders.items():
+        with pytest.raises(RuntimeError, match="cuda"):
+            build()
+        parts = build(device="cpu")
+        parts = parts if isinstance(parts, tuple) else (parts,)
+        tensors = [v for p in parts for v in (vars(p).values() if dataclasses.is_dataclass(p)
+                                              else [p]) if isinstance(v, torch.Tensor)]
+        assert tensors and all(t.device.type == "cpu" for t in tensors), name
+    bg = init_node_from_points(xyz, rgb, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_scene(bg)
+    params, aux = init_scene(bg, device="cpu")
+    assert params.appearance.device.type == params.camera_opt.device.type == "cpu"
+    assert aux.background.alive.device.type == "cpu"
 
 
 def test_render_tool_raises_without_a_card(no_card, tmp_path):

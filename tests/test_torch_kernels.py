@@ -49,16 +49,26 @@ def make_expand_inputs(seed, *, n_live, n_dead, nw, tiles_x, tiles_y):
 
 
 def make_blend_inputs(seed, *, tiles_x, tiles_y, tile_size, c_total,
-                      max_per_tile=300, deep_tiles=(), empty_tiles=()):
+                      max_per_tile=300, deep_tiles=(), empty_tiles=(), faint_tiles=(),
+                      faint_count=5000, half_tiles=()):
     """Random tile-sorted slab [round8(6 + c_total), cap] and per-tile
     ranges in the rasterizer's layout: tile runs are consecutive from an
     unaligned first start. `deep_tiles` get many near-opaque splats
-    covering the tile (their pixels saturate and the tile exits early)."""
+    covering the tile (their pixels saturate and the tile exits early);
+    `faint_tiles` get `faint_count` splats of opacity 0.005-0.02 covering
+    the tile, as after an opacity reset (each pixel composites thousands
+    of them before it saturates, if it does); `half_tiles` get 700
+    near-opaque splats over the left half only (those pixels saturate
+    within the first batches, the right half's never do)."""
     rng = np.random.default_rng(seed)
     T = tiles_x * tiles_y
     counts = rng.integers(1, max_per_tile, T).astype(np.int32)
     for t in deep_tiles:
         counts[t] = 3 * CHUNK + 17
+    for t in faint_tiles:
+        counts[t] = faint_count
+    for t in half_tiles:
+        counts[t] = 700
     for t in empty_tiles:
         counts[t] = 0
     first = int(rng.integers(1, CHUNK))  # unaligned start of tile 0
@@ -71,19 +81,27 @@ def make_blend_inputs(seed, *, tiles_x, tiles_y, tile_size, c_total,
         if c == 0:
             continue
         ox, oy = (t % tiles_x) * tile_size, (t // tiles_x) * tile_size
-        deep = t in deep_tiles
-        lo, hi = (0.3, 0.7) if deep else (-0.3, 1.3)
+        deep, faint, half = t in deep_tiles, t in faint_tiles, t in half_tiles
+        lo, hi = (0.3, 0.7) if deep else (0.0, 1.0) if faint else (-0.3, 1.3)
         mx = ox + tile_size * rng.uniform(lo, hi, c)
         my = oy + tile_size * rng.uniform(lo, hi, c)
-        sx = tile_size * rng.uniform(0.5, 1.2, c) if deep else rng.uniform(0.5, 8.0, c)
-        sy = tile_size * rng.uniform(0.5, 1.2, c) if deep else rng.uniform(0.5, 8.0, c)
+        if half:
+            mx = ox + tile_size * rng.uniform(0.0, 0.3, c)
+        wide = deep or faint
+        sx = tile_size * rng.uniform(0.5, 1.2, c) if wide else rng.uniform(0.5, 8.0, c)
+        sy = tile_size * rng.uniform(0.5, 1.2, c) if wide else rng.uniform(0.5, 8.0, c)
+        if half:
+            sx, sy = rng.uniform(1.0, 3.0, c), tile_size * rng.uniform(0.3, 0.8, c)
         th = rng.uniform(0, np.pi, c)
+        if half:
+            th[:] = 0.0  # axis-aligned: narrow in x
         cs, sn = np.cos(th), np.sin(th)
         v00 = cs * cs * sx * sx + sn * sn * sy * sy + 0.3
         v11 = sn * sn * sx * sx + cs * cs * sy * sy + 0.3
         v01 = cs * sn * (sx * sx - sy * sy)
         det = v00 * v11 - v01 * v01
-        op = rng.uniform(0.9, 0.99, c) if deep else rng.uniform(0.0, 0.99, c)
+        op = (rng.uniform(0.9, 0.99, c) if deep or half else rng.uniform(0.005, 0.02, c)
+              if faint else rng.uniform(0.0, 0.99, c))
         cols = rng.uniform(0.0, 1.0, (c_total, c))
         if c_total >= 4:
             cols[-1] = rng.uniform(1.0, 60.0, c)  # a depth channel
@@ -183,22 +201,41 @@ def row_errors(got, want):
     return torch.where(scale > 0, err / torch.clamp(scale, min=1e-30), err)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("tile_size,c_total,tiles_x,tiles_y,max_per_tile", BLEND_CASES)
-def test_blend_backward_kernel_matches_plain(cuda, tile_size, c_total, tiles_x, tiles_y,
-                                             max_per_tile):
-    """Gradient rows within GRAD_TOL of the plain version (sums in another
-    order; the kernel's centred moments lose fewer digits); exact zeros
-    outside every tile's range."""
+# BLEND_CASES, then faint deep tiles (thousands of pairs across many of the
+# kernel's batches; pixels that saturate mid-list and ones that never do)
+# beside a half-covered tile, at both tile sizes
+BACKWARD_CASES = [(*case, {}) for case in BLEND_CASES] + [
+    (16, 7, 3, 2, 300, dict(faint_tiles=(3,), half_tiles=(4,))),
+    (32, 7, 3, 2, 300, dict(faint_tiles=(3,), half_tiles=(4,))),
+    (32, 3, 4, 2, 300, dict(faint_tiles=(0, 5), faint_count=9000, half_tiles=(4,))),
+]
+
+
+def backward_inputs(cuda, seed, tile_size, c_total, tiles_x, tiles_y, max_per_tile,
+                    extra):
+    """(slab, ranges, forward outputs, random cotangents, kw) on the card."""
     slab, ranges = make_blend_inputs(
-        5, tiles_x=tiles_x, tiles_y=tiles_y, tile_size=tile_size, c_total=c_total,
-        max_per_tile=max_per_tile, deep_tiles=(1,), empty_tiles=(2,))
+        seed, tiles_x=tiles_x, tiles_y=tiles_y, tile_size=tile_size, c_total=c_total,
+        max_per_tile=max_per_tile, deep_tiles=(1,), empty_tiles=(2,), **extra)
     args = [torch.from_numpy(a).to(cuda) for a in (slab, *ranges)]
     kw = dict(tile_size=tile_size, tiles_x=tiles_x, c_total=c_total)
     rgb, t_final = blend_forward(*args, **kw)
     gen = torch.Generator(device=cuda).manual_seed(0)
     g_rgb = torch.randn(rgb.shape, generator=gen, device=cuda)
     g_t = torch.randn(t_final.shape, generator=gen, device=cuda)
+    return slab, ranges, args, rgb, t_final, g_rgb, g_t, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_size,c_total,tiles_x,tiles_y,max_per_tile,extra",
+                         BACKWARD_CASES)
+def test_blend_backward_kernel_matches_plain(cuda, tile_size, c_total, tiles_x, tiles_y,
+                                             max_per_tile, extra):
+    """Gradient rows within GRAD_TOL of the plain version (sums in another
+    order; the kernel's centred moments lose fewer digits); exact zeros
+    outside every tile's range."""
+    slab, ranges, args, rgb, t_final, g_rgb, g_t, kw = backward_inputs(
+        cuda, 5, tile_size, c_total, tiles_x, tiles_y, max_per_tile, extra)
     before = cuda_build.LAUNCHES["blend_backward"]
     got = blend_backward(*args, rgb, t_final, g_rgb, g_t, **kw)
     torch.cuda.synchronize()
@@ -212,6 +249,83 @@ def test_blend_backward_kernel_matches_plain(cuda, tile_size, c_total, tiles_x, 
         live[o + h:o + h + c] = True
     assert not got[:, ~live].any() and not got[nw:].any()
     assert got[:nw, live].abs().sum() > 0
+
+
+def make_edge_inputs(seed, *, tile_size, c_total, tiles_x=2, tiles_y=2, per_tile=600):
+    """Splats at the edge of the backward kernel's row-support test: a
+    third centred up to three tiles away with scales that reach in, a
+    third needles at every angle, a third with opacity just above 1/255."""
+    rng = np.random.default_rng(seed)
+    T = tiles_x * tiles_y
+    first = int(rng.integers(1, CHUNK))
+    nw = NUM_GEOM + c_total
+    total = first + T * per_tile
+    slab = np.zeros((((nw + 7) // 8) * 8, padded_capacity(total)), np.float32)
+    k = per_tile // 3
+    for t in range(T):
+        ox, oy = (t % tiles_x) * tile_size, (t // tiles_x) * tile_size
+        far = rng.uniform(-3.0, 4.0, (2, k)), rng.uniform(5.0, 60.0, (2, k))
+        needle = rng.uniform(-0.5, 1.5, (2, k)), np.stack([rng.uniform(0.2, 0.6, k),
+                                                           rng.uniform(10.0, 80.0, k)])
+        faint = (rng.uniform(0.0, 1.0, (2, per_tile - 2 * k)),
+                 rng.uniform(0.5, 8.0, (2, per_tile - 2 * k)))
+        pos = np.concatenate([far[0], needle[0], faint[0]], 1)
+        scale = np.concatenate([far[1], needle[1], faint[1]], 1)
+        op = np.concatenate([rng.uniform(0.004, 0.05, 2 * k),
+                             rng.uniform(1.0, 1.1, per_tile - 2 * k) / 255.0])
+        th = rng.uniform(0, np.pi, per_tile)
+        cs, sn = np.cos(th), np.sin(th)
+        sx, sy = scale
+        v00 = cs * cs * sx * sx + sn * sn * sy * sy + 0.3
+        v11 = sn * sn * sx * sx + cs * cs * sy * sy + 0.3
+        v01 = cs * sn * (sx * sx - sy * sy)
+        det = v00 * v11 - v01 * v01
+        cols = rng.uniform(0.0, 1.0, (c_total, per_tile))
+        rows = [ox + tile_size * pos[0], oy + tile_size * pos[1], v11 / det, -v01 / det,
+                v00 / det, op, *cols]
+        order = rng.permutation(per_tile)
+        s0 = first + t * per_tile
+        slab[:nw, s0:s0 + per_tile] = np.stack(rows)[:, order]
+    starts = (first + per_tile * np.arange(T)).astype(np.int32)
+    counts = np.full(T, per_tile, np.int32)
+    offsets = (starts // CHUNK) * CHUNK
+    heads = starts - offsets
+    nchunks = (heads + counts + CHUNK - 1) // CHUNK
+    return slab, [a.astype(np.int32) for a in (offsets, heads, counts, nchunks)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_size", [16, 32])
+def test_blend_backward_support_skip_keeps_every_pair(cuda, tile_size):
+    """The kernel leaves out a warp's rows where a splat cannot reach
+    alpha 1/255; on splats built to sit at the edge of that test it gives
+    the plain version's gradients, with a non-zero colour gradient on
+    exactly the intersections the plain version composites."""
+    slab, ranges = make_edge_inputs(8, tile_size=tile_size, c_total=4)
+    args = [torch.from_numpy(a).to(cuda) for a in (slab, *ranges)]
+    kw = dict(tile_size=tile_size, tiles_x=2, c_total=4)
+    rgb, t_final = blend_forward(*args, **kw)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    cot = [torch.randn(a.shape, generator=gen, device=cuda) for a in (rgb, t_final)]
+    got = blend_backward(*args, rgb, t_final, *cot, **kw)
+    want = blend_backward_plain(*args, rgb, t_final, *cot, **kw)
+    errs = row_errors(got[:NUM_GEOM + 4], want[:NUM_GEOM + 4])
+    assert float(errs.max()) <= GRAD_TOL, errs.tolist()
+    assert torch.equal(got[NUM_GEOM] != 0, want[NUM_GEOM] != 0)
+    assert int((want[NUM_GEOM] != 0).sum()) > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_size", [16, 32])
+def test_blend_backward_kernel_repeats_bit_for_bit(cuda, tile_size):
+    """Two launches on the same faint, deep inputs give the same bits: the
+    sums are taken in a fixed order, with no atomics."""
+    _, _, args, rgb, t_final, g_rgb, g_t, kw = backward_inputs(
+        cuda, 6, tile_size, 7, 3, 2, 300, dict(faint_tiles=(0, 3), half_tiles=(4,)))
+    first = blend_backward(*args, rgb, t_final, g_rgb, g_t, **kw)
+    second = blend_backward(*args, rgb, t_final, g_rgb, g_t, **kw)
+    torch.cuda.synchronize()
+    assert first.abs().sum() > 0 and torch.equal(first, second)
 
 
 # (n, I, n_live, sentinel tail): small, then the main path's (~1M gaussians, I = 2^21)
@@ -281,14 +395,20 @@ def test_expand_pairs_kernel_matches_plain(cuda, n_live, n_dead, I, tiles_x, til
 
 
 # (w, cap): the classic path's widths, caps that are not multiples of the
-# kernel's 256-slot blocks, and the 1920x1080 render's slab at I = 2^23
-TRANSPOSE_CASES = [(13, 1000), (15, 70_001), (16, 1_000_001), (13, padded_capacity(1 << 23))]
+# kernel's 256-slot blocks, and the 1920x1080 render's slab at I = 2^23;
+# then widths 1 and 32 (the kernels' range), caps below one block, caps
+# that are not multiples of 4, and the grown training step's [16, 1,609,729]
+TRANSPOSE_CASES = [(13, 1000), (15, 70_001), (16, 1_000_001), (13, padded_capacity(1 << 23)),
+                   (1, 100), (1, 70_003), (32, 255), (32, 70_001), (16, 3), (15, 256),
+                   (16, 1_609_729)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("w,cap", TRANSPOSE_CASES)
 def test_transpose_kernels_match_plain(cuda, w, cap):
-    """Both transposes bit-equal to theirs: a transpose is a copy."""
+    """Both transposes bit-equal to theirs: a transpose is a copy. The
+    attribute-major input is also taken at each 4-byte offset from a
+    16-byte boundary (a contiguous view into a larger buffer)."""
     gen = torch.Generator(device=cuda).manual_seed(w)
     rows = torch.randn((cap, w), generator=gen, device=cuda)
     before = dict(cuda_build.LAUNCHES)
@@ -302,6 +422,10 @@ def test_transpose_kernels_match_plain(cuda, w, cap):
     assert torch.equal(got, attr_major_to_rows_plain(attrs))
     assert cuda_build.LAUNCHES["rows_to_attr_major"] == before["rows_to_attr_major"] + 1
     assert cuda_build.LAUNCHES["attr_major_to_rows"] == before["attr_major_to_rows"] + 1
+    buf = torch.randn(w * cap + 3, generator=gen, device=cuda)
+    for off in (1, 2, 3):
+        view = buf[off:off + w * cap].view(w, cap)
+        assert torch.equal(attr_major_to_rows(view), attr_major_to_rows_plain(view))
 
 
 @pytest.mark.cuda

@@ -36,7 +36,7 @@ def test_init_node_from_points_matches(multi_rest, fourier_dim):
     kw = dict(capacity=512, num_traversals=2, multi_feature_rest=multi_rest, seed=5,
               fourier_dim=fourier_dim)
     jp, ja = jg.init_node_from_points(xyz, rgb, **kw)
-    tp, ta = tg.init_node_from_points(xyz, rgb, **kw)
+    tp, ta = tg.init_node_from_points(xyz, rgb, **kw, device="cpu")
     for f in ("means", "scales", "quats", "features_dc", "features_rest", "opacities",
               "features_adapters", "fourier_dc"):
         close(getattr(tp, f), getattr(jp, f))
@@ -53,7 +53,8 @@ def test_init_node_from_points_matches(multi_rest, fourier_dim):
 
 def test_init_skybox_node_matches():
     jp, _ = jg.init_skybox_node(num_points=700, radius=250.0, num_traversals=2, seed=4)
-    tp, _ = tg.init_skybox_node(num_points=700, radius=250.0, num_traversals=2, seed=4)
+    tp, _ = tg.init_skybox_node(num_points=700, radius=250.0, num_traversals=2, seed=4,
+                                device="cpu")
     for f in ("means", "scales", "quats", "features_dc"):
         close(getattr(tp, f), getattr(jp, f))
     assert tp.capacity == jp.capacity
@@ -67,7 +68,7 @@ def test_appearance_fourier_and_sh_mask_match():
     for cam in range(3):
         close(tapp.apply_exposure(t(app), t(rgb), cam),
               japp.apply_exposure(jnp.asarray(app), jnp.asarray(rgb), cam))
-    close(tapp.init_exposure(2), japp.init_exposure(2))
+    close(tapp.init_exposure(2, device="cpu"), japp.init_exposure(2))
     coeffs = rng.normal(size=(50, 5, 3)).astype(np.float32)
     for ts in (0.0, 0.37, 1.0):
         close(tfour.fourier_features_dc(t(coeffs), torch.tensor(ts)),

@@ -371,7 +371,8 @@ def test_depth_fill_of_empty_pixels_has_no_gradient():
     xyz = np.stack([rng.uniform(-1, 1, 20), rng.uniform(-1, 1, 20),
                     rng.uniform(-6, -3, 20)], -1).astype(np.float32)
     params, aux = tsg.init_scene(tg.init_node_from_points(xyz, rng.uniform(0, 255, (20, 3)),
-                                                          capacity=32))
+                                                          capacity=32, device="cpu"),
+                                 device="cpu")
     cfg = tconfigs.mtgs_config(32, 16).replace(max_intersections=1 << 12)
     K = np.array([[20.0, 0, 16], [0, 20.0, 8], [0, 0, 1]], np.float32)
     batch = ttr.Batch(image=np.zeros((16, 32, 3), np.float32),
@@ -400,7 +401,9 @@ def test_trainer_loop_refines_resets_and_grows_on_schedule():
     xyz = np.stack([rng.uniform(-1, 1, n), rng.uniform(-0.5, 0.5, n),
                     rng.uniform(-6, -3, n)], -1).astype(np.float32)
     params, aux = tsg.init_scene(tg.init_node_from_points(xyz, rng.uniform(0, 255, (n, 3)),
-                                                          capacity=256, init_opacity=0.5))
+                                                          capacity=256, init_opacity=0.5,
+                                                          device="cpu"),
+                                 device="cpu")
     cfg = tconfigs.mtgs_config(32, 16, max_steps=30).replace(max_intersections=1 << 12)
     cfg = cfg.replace(control=dataclasses.replace(cfg.control, refine_every=2,
                                                   densify_grad_thresh=0.0))
