@@ -66,11 +66,13 @@ plain PyTorch versions. Phases, each of which raises on failure:
      against the plain path (2e-4);
   5. kernels: each kernel against its plain version, the fused forward two
      at the shapes of one serving view, the backward two at those of one
-     training step (the blend backward also on the faint scene of one more
+     training step (both blends also on the faint scene of one more
      phase-6 step, 21 steps after the opacity reset, where two launches
-     must give equal bits), the classic three at a 1920x1080 frame's and
-     a grown training step's, timed with CUDA events (median of 20 after
-     warm-up), with the least time the card could take for the same work.
+     must give equal bits; the blend forward and the segment sum also at
+     a grown training step's, the segment sum twice at each for equal
+     bits), the classic three at a 1920x1080 frame's and a grown training
+     step's, timed with CUDA events (median of 20 after warm-up), with the
+     least time the card could take for the same work.
 
 Prints the card line, the `{"kernels": [...]}` line and, last,
 `{"ok": true, "device": {...}}`; `--out DIR` also writes everything
@@ -292,17 +294,33 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def blend_error(got, want):
-    """(max error, pixels above BLEND_TOL): colour channels and
-    transmittance absolute, each channel scaled by max(1, its largest
-    |value|) so the depth channel is held relatively."""
+def blend_errors(got, want):
+    """Each pixel's error [T, PIX]: colour channels and transmittance
+    absolute, each channel scaled by max(1, its largest |value|) so the
+    depth channel is held relatively."""
     rgb_g, t_g = got
     rgb_w, t_w = want
     scale = torch.clamp(rgb_w.abs().amax(dim=(0, 2), keepdim=True), min=1.0)
     err_rgb = ((rgb_g - rgb_w).abs() / scale).amax(dim=1)
-    err_t = (t_g - t_w).abs()
-    err = torch.maximum(err_rgb, err_t)
-    return float(err.max()), int((err > BLEND_TOL).sum())
+    return torch.maximum(err_rgb, (t_g - t_w).abs())
+
+
+def termination_flips(got, want, slab_t, c_total):
+    """Pixels where one blend stopped before a gaussian that the other
+    composited as its last (T = 1e-4 decided on differently rounded log
+    sums: the plain version's chunked cumsum against the kernel's running
+    sum): the smaller transmittance lies within 1e-4 relative of the 1e-4
+    cut-off, and each colour channel's error (scaled as in blend_errors)
+    is within that gaussian's weight, the transmittances' difference,
+    times the channel's largest |value| in the slab, plus BLEND_TOL."""
+    rgb_g, t_g = got
+    rgb_w, t_w = want
+    scale = torch.clamp(rgb_w.abs().amax(dim=(0, 2), keepdim=True), min=1.0)
+    col_max = slab_t[NUM_GEOM:NUM_GEOM + c_total].abs().amax(dim=1)[None, :, None]
+    d_t = (t_g - t_w).abs()[:, None]
+    explained = ((rgb_g - rgb_w).abs() <= (d_t * col_max + BLEND_TOL) * scale).all(dim=1)
+    at_cut = ((torch.minimum(t_g, t_w) - 1e-4).abs() <= 1e-8)
+    return explained & at_cut
 
 
 @contextlib.contextmanager
@@ -707,10 +725,10 @@ def phase_train(args, dev, state_sd, batches):
 
 
 def capture_faint_step(trainer):
-    """The kernel wrappers' arguments in one more step of the phase-6
-    trainer: the scene 21 steps after the opacity reset, still faint (the
-    blends evaluate most of each tile's pairs), as in the training step
-    that --profile traces after it."""
+    """The kernel wrappers' arguments in one more step of a trainer after
+    its opacity reset (phase 6's: 21 steps after it; phase 9's: 10), the
+    scene still faint (the blends evaluate most of each tile's pairs), as
+    in the training step that --profile traces after it."""
     captured = {}
     with capturing(captured):
         trainer.train(1)
@@ -961,6 +979,90 @@ def row_errors(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
     return torch.where(scale > 0, err / torch.clamp(scale, min=1e-30), err)
 
 
+def forward_timing(a, kw, plain_reps: int = 5, term_flips: bool = False):
+    """blend_forward on one capture's arguments against its plain version
+    (BLEND_TOL, BLEND_FLIP_TOL at up to 0.1% of pixels; with `term_flips`
+    a pixel of those may instead be a termination flip), timed, with the
+    least time the card could take for the blend of these inputs. Returns
+    (the row's numbers, the kernel's output)."""
+    slab_t, offs, heads, counts, nchunks = a
+    c_total, T = kw["c_total"], offs.shape[0]
+    got = blend.blend_forward(*a, **kw)
+    stats = {}
+    want = blend.blend_forward_plain(*a, **kw, stats=stats)
+    torch.cuda.synchronize()
+    errs = blend_errors(got, want)
+    err, flips, n_pix = float(errs.max()), int((errs > BLEND_TOL).sum()), errs.numel()
+    term = torch.zeros_like(errs, dtype=torch.bool)
+    if term_flips:
+        term = termination_flips(got, want, slab_t, c_total) & (errs > BLEND_TOL)
+    n_term = int(term.sum())
+    err_rest = float(torch.where(term, 0.0, errs).max())
+    require(flips <= max(2, n_pix // 1000) and err_rest <= BLEND_FLIP_TOL,
+            f"blend_forward: max err {err} ({err_rest} outside {n_term} termination flips), "
+            f"{flips} pixels above {BLEND_TOL} (allowed {max(2, n_pix // 1000)} up to "
+            f"{BLEND_FLIP_TOL}{', or termination flips' if term_flips else ''})")
+    # the slab columns the early exit must read: per tile, those up to the
+    # furthest intersection any of its pixels evaluates
+    b_bytes = 4 * ((NUM_GEOM + c_total) * stats["pairs_read"] + 3 * T
+                   + (c_total + 1) * n_pix)
+    # per evaluated (pixel, intersection) inside the splat's 1/255 support
+    # (outside it none is needed): sigma 11, exp and scale 3; per composited
+    # one: clamp, log1p, sum, exp, weight, c_total FMAs, log sum
+    b_ops = 14 * stats["pair_support"] + (6 + 2 * c_total) * stats["pair_blends"]
+    b_bound_bytes = 1e3 * b_bytes / PEAK_BYTES_PER_S
+    b_bound_ops = 1e3 * b_ops / PEAK_F32_PER_S
+    row = dict(
+        max_abs_err=err,
+        tol=dict(abs=BLEND_TOL, flip=BLEND_FLIP_TOL, flip_pixels_max=max(2, n_pix // 1000),
+                 termination_flips_allowed=term_flips),
+        flip_pixels=flips, termination_flips=n_term, max_err_outside_termination_flips=err_rest,
+        ms=cuda_ms(lambda: blend.blend_forward(*a, **kw)),
+        tile_order_ms=cuda_ms(lambda: blend.tile_order(counts)),  # inside ms: the wrapper's sort
+        plain_ms=cuda_ms(lambda: blend.blend_forward_plain(*a, **kw), reps=plain_reps,
+                         warmup=1),
+        bound_ms=max(b_bound_bytes, b_bound_ops),
+        bound_by="operations" if b_bound_ops >= b_bound_bytes else "bytes",
+        shapes=dict(slab=list(slab_t.shape), tiles=T, tile_size=kw["tile_size"],
+                    c_total=c_total, pairs=int(counts.sum()), deepest_tile=int(counts.max())),
+        pairs_read=stats["pairs_read"], pair_evals=stats["pair_evals"],
+        pair_support=stats["pair_support"], pair_blends=stats["pair_blends"],
+        bytes=b_bytes, ops=b_ops,
+        bound_bytes_ms=b_bound_bytes, bound_ops_ms=b_bound_ops)
+    return row, got
+
+
+def segment_timing(rows, src, n, dev):
+    """dense_segment_sum on one capture's arguments against its plain
+    version (SEGMENT_TOL max-scaled per row), twice for equal bits, timed,
+    with its bytes bound and index_add_'s time."""
+    got = segment_sum.dense_segment_sum(rows, src, n)
+    again = segment_sum.dense_segment_sum(rows, src, n)
+    want = segment_sum.dense_segment_sum_plain(rows, src, n)
+    torch.cuda.synchronize()
+    errs = row_errors(got, want)
+    err = float(errs.max())
+    require(err <= SEGMENT_TOL, f"dense_segment_sum: row errors {errs.tolist()}")
+    require(torch.equal(got, again), "dense_segment_sum: two launches differ")
+    live_slots = int((src < n).sum())
+    W = rows.shape[0]
+    # the live slots' rows and every slot's owner read once, the output written once
+    s_bytes = 4 * (W * live_slots + src.numel() + W * (n + 1))
+    src64 = src.to(torch.int64)
+    return dict(
+        max_abs_err=float((got - want).abs().max()), max_scaled_err=err,
+        tol=dict(max_scaled=SEGMENT_TOL), repeat_bit_equal=True,
+        ms=cuda_ms(lambda: segment_sum.dense_segment_sum(rows, src, n)),
+        plain_ms=cuda_ms(lambda: segment_sum.dense_segment_sum_plain(rows, src, n)),
+        bound_ms=1e3 * s_bytes / PEAK_BYTES_PER_S, bound_by="bytes",
+        library_ms=cuda_ms(lambda: torch.zeros((W, n + 1), dtype=torch.float32, device=dev)
+                           .index_add_(1, src64, rows)),
+        shapes=dict(rows=list(rows.shape), n=n, live_slots=live_slots,
+                    longest_segment=int(torch.unique_consecutive(
+                        src[src < n], return_counts=True)[1].max()) if live_slots else 0),
+        bytes=s_bytes)
+
+
 def backward_timing(a, kw):
     """blend_backward on one capture's arguments against its plain version
     (GRAD_TOL max-scaled per row, the rows past 6 + c_total all zero),
@@ -1011,17 +1113,16 @@ def backward_timing(a, kw):
 
 
 @torch.no_grad()
-def phase_kernels(params, aux, cfg, batch, by_path, train_captured, faint_captured,
-                  render_captured, growth_captured, dev):
+def phase_kernels(by_path, captured, train_captured, faint_captured, render_captured,
+                  growth_captured, dev):
     """Each kernel against its plain version: the fused forward two at one
-    serving view's shapes, the backward two at one training step's (the
-    blend backward also at a faint step's, and twice there for equal
-    bits), the classic three (classic_kernel_rows) at a 1920x1080 frame's
-    and a grown training step's. by_path: {path: launch counts of that
-    path's run}."""
-    captured = {}
-    with capturing(captured):
-        render_view(params, aux, cfg, batch, 10**9, device=dev)
+    serving view's shapes (`captured`; the blend forward also at a faint
+    step's and a grown training step's), the backward two at one training
+    step's (the blend backward also at a faint step's, and twice there for
+    equal bits; the segment sum also at a grown step's, and twice at each
+    for equal bits), the classic three (classic_kernel_rows) at a
+    1920x1080 frame's and a grown training step's. by_path: {path: launch
+    counts of that path's run}."""
     launches = {k: sum(c[k] for c in by_path.values()) for k in KERNELS}
     kernels = []
 
@@ -1051,49 +1152,26 @@ def phase_kernels(params, aux, cfg, batch, by_path, train_captured, faint_captur
         shapes=dict(table=list(table.shape), I=I, total=int(total), nw=nw),
         bytes=e_bytes))
 
-    # blend_forward: the front-to-back blend
-    a, kw = captured["blend_forward"]
-    got = blend.blend_forward(*a, **kw)
-    stats = {}
-    want = blend.blend_forward_plain(*a, **kw, stats=stats)
+    # blend_forward: the front-to-back blend at a serving view, on the
+    # faint scene after the opacity reset (one more phase-6 step) and at a
+    # grown training step (classic path); two launches on the faint
+    # capture give equal bits
+    serving, _ = forward_timing(*captured["blend_forward"])
+    faint, faint_got = forward_timing(*faint_captured["blend_forward"], plain_reps=3,
+                                      term_flips=True)
+    grown, _ = forward_timing(*growth_captured["blend_forward"], plain_reps=3, term_flips=True)
+    a, kw = faint_captured["blend_forward"]
+    again = blend.blend_forward(*a, **kw)
     torch.cuda.synchronize()
-    err, flips = blend_error(got, want)
-    n_pix = want[1].numel()
-    require(flips <= max(2, n_pix // 1000) and err <= BLEND_FLIP_TOL,
-            f"blend_forward: max err {err}, {flips} pixels above {BLEND_TOL} "
-            f"(allowed {max(2, n_pix // 1000)} up to {BLEND_FLIP_TOL})")
-    slab_t, offs, heads, counts, nchunks = a
-    c_total, T = kw["c_total"], offs.shape[0]
-    n_pairs = int(counts.sum())
-    # the slab columns the early exit must read: per tile, those up to the
-    # furthest intersection any of its pixels evaluates
-    b_bytes = 4 * ((NUM_GEOM + c_total) * stats["pairs_read"] + 3 * T
-                   + (c_total + 1) * n_pix)
-    # per evaluated (pixel, intersection) inside the splat's 1/255 support
-    # (outside it none is needed): sigma 11, exp and scale 3; per composited
-    # one: clamp, log1p, sum, exp, weight, c_total FMAs, log sum
-    b_ops = 14 * stats["pair_support"] + (6 + 2 * c_total) * stats["pair_blends"]
-    b_bound_bytes = 1e3 * b_bytes / PEAK_BYTES_PER_S
-    b_bound_ops = 1e3 * b_ops / PEAK_F32_PER_S
+    require(all(torch.equal(x, y) for x, y in zip(faint_got, again)),
+            "blend_forward: two launches on the faint capture differ")
     kernels.append(dict(
         name="blend_forward", route="cuda", source="mtgs_torch/csrc/blend_forward.cu",
         replaces="mtgs_tpu/raster/blend_pallas.py:185",
         tpu_kernel="mtgs_tpu/raster/blend_pallas.py::blend_forward_pallas",
-        launches=launches["blend_forward"], max_abs_err=err,
-        tol=dict(abs=BLEND_TOL, flip=BLEND_FLIP_TOL, flip_pixels_max=max(2, n_pix // 1000)),
-        flip_pixels=flips,
-        ms=cuda_ms(lambda: blend.blend_forward(*a, **kw)),
-        plain_ms=cuda_ms(lambda: blend.blend_forward_plain(*a, **kw), reps=5, warmup=1),
-        bound_ms=max(b_bound_bytes, b_bound_ops),
-        bound_by="operations" if b_bound_ops >= b_bound_bytes else "bytes",
-        library_ms=None,
-        library_note="no single PyTorch call computes a depth-ordered alpha blend",
-        shapes=dict(slab=list(slab_t.shape), tiles=T, tile_size=kw["tile_size"],
-                    c_total=c_total, pairs=n_pairs),
-        pairs_read=stats["pairs_read"], pair_evals=stats["pair_evals"],
-        pair_support=stats["pair_support"], pair_blends=stats["pair_blends"],
-        bytes=b_bytes, ops=b_ops,
-        bound_bytes_ms=b_bound_bytes, bound_ops_ms=b_bound_ops))
+        launches=launches["blend_forward"], **serving, at_faint=faint, at_growth=grown,
+        repeat_bit_equal=True, library_ms=None,
+        library_note="no single PyTorch call computes a depth-ordered alpha blend"))
 
     # blend_backward: the replay of one training step's blend, at the bright
     # start (the phase-6 gradient step) and on the faint scene after the
@@ -1113,39 +1191,24 @@ def phase_kernels(params, aux, cfg, batch, by_path, train_captured, faint_captur
         at_faint=faint, repeat_bit_equal=True, library_ms=None,
         library_note="none: no PyTorch call computes the gradient of a depth-ordered blend"))
 
-    # dense_segment_sum: one training step's slot rows to per-gaussian sums
+    # dense_segment_sum: one training step's slot rows to per-gaussian sums,
+    # and a grown (classic) step's
     (rows, src, n), _ = train_captured["dense_segment_sum"]
-    got = segment_sum.dense_segment_sum(rows, src, n)
-    want = segment_sum.dense_segment_sum_plain(rows, src, n)
-    torch.cuda.synchronize()
-    errs = row_errors(got, want)
-    err = float(errs.max())
-    require(err <= SEGMENT_TOL, f"dense_segment_sum: row errors {errs.tolist()}")
-    live_slots = int((src < n).sum())
-    W = rows.shape[0]
-    # the live slots' rows and every slot's owner read once, the output written once
-    s_bytes = 4 * (W * live_slots + src.numel() + W * (n + 1))
-    src64 = src.to(torch.int64)
+    (g_rows, g_src, g_n), _ = growth_captured["dense_segment_sum"]
     kernels.append(dict(
         name="dense_segment_sum", route="cuda", source="mtgs_torch/csrc/segment_sum.cu",
         replaces="mtgs_tpu/raster/segment_sum.py:75",
         tpu_kernel="mtgs_tpu/raster/segment_sum.py::dense_segment_sum",
-        launches=launches["dense_segment_sum"], max_abs_err=float((got - want).abs().max()),
-        max_scaled_err=err, tol=dict(max_scaled=SEGMENT_TOL),
-        ms=cuda_ms(lambda: segment_sum.dense_segment_sum(rows, src, n)),
-        plain_ms=cuda_ms(lambda: segment_sum.dense_segment_sum_plain(rows, src, n)),
-        bound_ms=1e3 * s_bytes / PEAK_BYTES_PER_S, bound_by="bytes",
-        library_ms=cuda_ms(lambda: torch.zeros((W, n + 1), dtype=torch.float32, device=dev)
-                           .index_add_(1, src64, rows)),
-        library_note="index_add_ of the rows into a zeroed [W, n + 1] (index precomputed)",
-        shapes=dict(rows=list(rows.shape), n=n, live_slots=live_slots), bytes=s_bytes))
+        launches=launches["dense_segment_sum"], **segment_timing(rows, src, n, dev),
+        at_growth=segment_timing(g_rows, g_src, g_n, dev),
+        library_note="index_add_ of the rows into a zeroed [W, n + 1] (index precomputed)"))
     kernels += classic_kernel_rows(render_captured, growth_captured, launches, dev)
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
         k["kernel_ms"] = k["ms"]
         log(f"# kernel {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, "
             f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}), max err {k['max_abs_err']:.3g}")
-        for at in ("at_faint", "at_training"):
+        for at in ("at_faint", "at_growth", "at_training"):
             if at in k:
                 log(f"#   {at}: {k[at]['ms']:.4f} ms (plain {k[at]['plain_ms']:.3f} ms, bound "
                     f"{k[at]['bound_ms']:.4f} ms by {k[at]['bound_by']}), max err "
@@ -1237,12 +1300,46 @@ def build_other(path: Path):
     return ctypes.CDLL(str(out))
 
 
-def phase_ab(specs, train_captured, faint_captured, render_captured, growth_captured):
+def legacy_blend_forward(lib, slab_t, tile_offsets, tile_heads, tile_counts, tile_nchunks, *,
+                         tile_size, tiles_x, c_total, tile_base=0):
+    """blend_forward through a library whose mtgs_blend_forward takes the
+    argument list without tile_order (no mtgs_blend_forward_abi symbol:
+    csrc/blend_forward.cu before it launched the tiles deepest first)."""
+    fn = lib.mtgs_blend_forward
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, ctypes.c_longlong, p, p, p, i, i, i, i, i, p, p, p]
+    fn.restype = ctypes.c_int
+    T, P = tile_offsets.shape[0], tile_size * tile_size
+    rgb = torch.empty((T, c_total, P), dtype=torch.float32, device=slab_t.device)
+    t_final = torch.empty((T, P), dtype=torch.float32, device=slab_t.device)
+    err = fn(slab_t.data_ptr(), slab_t.shape[1], tile_offsets.data_ptr(), tile_heads.data_ptr(),
+             tile_counts.data_ptr(), T, tile_size, tiles_x, int(tile_base), c_total,
+             rgb.data_ptr(), t_final.data_ptr(),
+             torch.cuda.current_stream(slab_t.device).cuda_stream)
+    cuda_build.check(err, "blend_forward (legacy argument list)")
+    return rgb, t_final
+
+
+def phase_ab(specs, serving_captured, train_captured, faint_captured, render_captured,
+             growth_captured, growth_faint_captured):
     """`--ab SOURCE=PATH`: each kernel of another version of a source
     against the checkout's, on phase 5's captured inputs, in one process:
-    its output held to the checkout kernel's (GRAD_TOL for the blend
-    backward, bit-equal for the transposes), then both timed in the order
-    checkout, other, other, checkout (cuda_ms each)."""
+    its output held to the checkout kernel's (bit-equal for the blend
+    forward and the transposes, GRAD_TOL for the blend backward,
+    SEGMENT_TOL for the segment sum), then both timed in the order
+    checkout, other, other, checkout (cuda_ms each). A blend_forward.cu
+    without the `mtgs_blend_forward_abi` marker is called with the
+    argument list it takes (`legacy_blend_forward`)."""
+    def bf(captured):
+        a, kw = captured["blend_forward"]
+
+        def call():
+            lib = cuda_build.load("blend_forward.cu")
+            if hasattr(lib, "mtgs_blend_forward_abi"):
+                return blend.blend_forward(*a, **kw)
+            return legacy_blend_forward(lib, *a, **kw)
+        return call, lambda mine, other: all(torch.equal(x, y) for x, y in zip(mine, other))
+
     def bb(captured):
         a, kw = captured["blend_backward"]
         nw = NUM_GEOM + kw["c_total"]
@@ -1252,12 +1349,21 @@ def phase_ab(specs, train_captured, faint_captured, render_captured, growth_capt
                     and not other[nw:].any())
         return lambda: blend.blend_backward(*a, **kw), same
 
+    def ss(captured):
+        (rows, src, n), _ = captured["dense_segment_sum"]
+        return (lambda: segment_sum.dense_segment_sum(rows, src, n),
+                lambda mine, other: float(row_errors(other, mine).max()) <= SEGMENT_TOL)
+
     def tr(name, captured):
         x = captured[name][0][0]
         return lambda: getattr(blend, name)(x), torch.equal
 
     cases = {
+        "blend_forward.cu": dict(serving=bf(serving_captured), faint=bf(faint_captured),
+                                 growth=bf(growth_captured),
+                                 growth_faint=bf(growth_faint_captured)),
         "blend_backward.cu": dict(bright=bb(train_captured), faint=bb(faint_captured)),
+        "segment_sum.cu": dict(training=ss(train_captured), growth=ss(growth_captured)),
         "transpose.cu": dict(
             rows_to_attr_major_frame=tr("rows_to_attr_major", render_captured),
             rows_to_attr_major_grown=tr("rows_to_attr_major", growth_captured),
@@ -1353,8 +1459,9 @@ def main(argv=None):
                          "(kernel time by name)")
     ap.add_argument("--ab", action="append", default=[], metavar="SOURCE=PATH",
                     help="also time another version of a kernel source (the same C "
-                         "interface, e.g. a parent commit's csrc/transpose.cu) against the "
-                         "checkout's at phase 5's inputs; repeatable")
+                         "interface, e.g. a parent commit's csrc/segment_sum.cu; "
+                         "csrc/blend_forward.cu also before its tile_order argument) "
+                         "against the checkout's at phase 5's inputs; repeatable")
     ap.add_argument("--out", type=Path, default=None,
                     help="directory to write the full results to (chip_smoke.json)")
     args = ap.parse_args(argv)
@@ -1387,10 +1494,13 @@ def main(argv=None):
     by_path = dict(serving=main_res["launches"], training=train_res["launches"],
                    classic_renders=classic_launches, classic_step=classic_step_launches,
                    render_tool=render_res["launches"], growth=growth_launches)
-    kernels = phase_kernels(params, aux, cfg, batch, by_path, train_captured, faint_captured,
+    serving_captured = {}  # the kernel wrappers' arguments in one serving view
+    with capturing(serving_captured), torch.no_grad():
+        render_view(params, aux, cfg, batch, 10**9, device=dev)
+    kernels = phase_kernels(by_path, serving_captured, train_captured, faint_captured,
                             render_captured, growth_captured, dev)
-    ab = phase_ab(args.ab, train_captured, faint_captured, render_captured,
-                  growth_captured) if args.ab else None
+    ab = phase_ab(args.ab, serving_captured, train_captured, faint_captured, render_captured,
+                  growth_captured, capture_faint_step(growth_trainer)) if args.ab else None
     prof = None
     if args.profile:
         prof = dict(

@@ -48,7 +48,8 @@
 //   * batches of 64 intersections: each block copies a batch's slab
 //     columns into shared memory with cp.async one batch ahead, and
 //     stages their conic coefficients Q (in the forward kernel's order)
-//     and each one's support box (support_box, in double precision): the
+//     and each one's support box (blend_math.cuh's support_box, in double
+//     precision, which the forward kernel shares): the
 //     pixel rows and columns outside which its alpha cannot reach 1/255.
 //     A warp walks only the intersections whose box meets its 8 x 8
 //     pixels (a 64-bit ballot); a faint deep tile's splats each cover a
@@ -100,6 +101,7 @@ using mtgs::kAlphaMax;
 using mtgs::kAlphaMin;
 using mtgs::kLogTEps;
 using mtgs::log1p_neg;
+using mtgs::support_box;
 
 constexpr int kCluster32 = 4;  // cluster size at tile 32 (tile 16: 1)
 constexpr int kBatch = 64;     // intersections staged at once (a warp's 64-bit mask)
@@ -133,62 +135,6 @@ __device__ __forceinline__ float transpose_reduce(float (&v)[2 * kSums], int lan
   fold<2>(v, lane, 2);
   fold<1>(v, lane, 1);
   return v[0];
-}
-
-// Where in a tile a splat may composite. A pixel composites only where
-// the forward's rounded sigma = q0 x^2 + q1 y^2 + q2 x y + q3 x + q4 y +
-// q5 satisfies op expf(-sigma) >= 1/255, i.e. sigma <= log(255 op) up to
-// the rounding of expf and the product. On a row y the exact quadratic
-// (in the float q's) is at least its minimum over every real x, m(y) =
-// A y^2 + B y + C, and the rounded sigma lies within 6 ulps of the sum of
-// its terms' magnitudes (S) of it. So a row where m(y) > lim = log(255
-// op) + 1e-3 + 1e-5 S composites nothing; the same holds for columns
-// with x and y swapped. support_range gives the closed interval of the
-// other rows (or columns), widened, in double precision: (-inf, inf)
-// where the conic is degenerate (nothing is left out), an empty one where
-// no pixel can reach 1/255. Leaving out a warp whose pixels lie outside
-// the box changes no decision.
-__device__ void support_range(double qa, double qb, double q2, double qd, double qe,
-                              double q5, double lim, float& lo, float& hi) {
-  lo = -INFINITY;
-  hi = INFINITY;
-  if (!(qa > 0.0)) return;
-  const double h = 0.25 / qa;
-  const double A = qb - q2 * q2 * h;
-  const double B = qe - 2.0 * q2 * qd * h;
-  const double Cq = q5 - qd * qd * h;
-  if (!(A > 0.0) || !isfinite(B) || !isfinite(Cq)) return;
-  const double disc = B * B - 4.0 * A * (Cq - lim);
-  if (!(disc >= 0.0)) {
-    if (isfinite(disc)) {  // m > lim everywhere
-      lo = INFINITY;
-      hi = -INFINITY;
-    }
-    return;
-  }
-  const double r = sqrt(disc), h2 = 0.5 / A;
-  const double y1 = (-B - r) * h2, y2 = (-B + r) * h2;
-  lo = (float)(y1 - 1e-3 * (1.0 + fabs(y1)));
-  hi = (float)(y2 + 1e-3 * (1.0 + fabs(y2)));
-}
-
-// The box [x0, x1] x [y0, y1] of pixel centres outside which the splat
-// composites nothing (box[0..3] = x0, x1, y0, y1).
-__device__ void support_box(const float (&q)[6], float op, float* box) {
-  box[0] = box[2] = -INFINITY;
-  box[1] = box[3] = INFINITY;
-  if (!(op > 0.0f)) {  // raw = op * e is never >= 1/255
-    box[0] = box[2] = INFINITY;
-    box[1] = box[3] = -INFINITY;
-    return;
-  }
-  const double q0 = q[0], q1 = q[1], q2 = q[2], q3 = q[3], q4 = q[4], q5 = q[5];
-  const double S = 1024.0 * (fabs(q0) + fabs(q1) + fabs(q2)) + 32.0 * (fabs(q3) + fabs(q4))
-                   + fabs(q5);
-  const double lim = (double)logf(255.0f * op) + 1e-3 + 1e-5 * S;
-  if (!isfinite(lim)) return;
-  support_range(q1, q0, q2, q4, q3, q5, lim, box[0], box[1]);  // columns
-  support_range(q0, q1, q2, q3, q4, q5, lim, box[2], box[3]);  // rows
 }
 
 template <int CT, int C, int NT>
@@ -290,15 +236,7 @@ blend_backward_kernel(const float* __restrict__ slab, long long cap,
       const float myl = __fsub_rn(cols[1][tid], oy);
       const float cA = cols[2][tid], cB = cols[3][tid], cC = cols[4][tid];
       float q[6];
-      q[0] = __fmul_rn(0.5f, cA);
-      q[1] = __fmul_rn(0.5f, cC);
-      q[2] = cB;
-      q[3] = -__fadd_rn(__fmul_rn(cA, mxl), __fmul_rn(cB, myl));
-      q[4] = -__fadd_rn(__fmul_rn(cC, myl), __fmul_rn(cB, mxl));
-      q[5] = __fadd_rn(
-          __fmul_rn(0.5f, __fadd_rn(__fmul_rn(__fmul_rn(cA, mxl), mxl),
-                                    __fmul_rn(__fmul_rn(cC, myl), myl))),
-          __fmul_rn(__fmul_rn(cB, mxl), myl));
+      mtgs::conic_q(mxl, myl, cA, cB, cC, q);
 #pragma unroll
       for (int k = 0; k < 6; ++k) qv_s[tid][k] = q[k];
       qv_s[tid][6] = cols[5][tid];
@@ -343,12 +281,8 @@ blend_backward_kernel(const float* __restrict__ slab, long long cap,
         const float4 qb = *reinterpret_cast<const float4*>(&qv_s[i][4]);
 #pragma unroll
         for (int k = 0; k < kPix; ++k) {
-          float s = __fmul_rn(fxx[k], qa.x);
-          s = __fadd_rn(s, __fmul_rn(fyy[k], qa.y));
-          s = __fadd_rn(s, __fmul_rn(fxy[k], qa.z));
-          s = __fadd_rn(s, __fmul_rn(fx[k], qa.w));
-          s = __fadd_rn(s, __fmul_rn(fy[k], qb.x));
-          s = __fadd_rn(s, qb.y);
+          const float s = mtgs::sigma_at(fxx[k], fyy[k], fxy[k], fx[k], fy[k], qa.x, qa.y,
+                                         qa.z, qa.w, qb.x, qb.y);
           e[u][k] = expf(-s);
           raw[u][k] = __fmul_rn(qb.z, e[u][k]);
           ok[u][k] = val[u] && s >= 0.0f && raw[u][k] >= kAlphaMin;

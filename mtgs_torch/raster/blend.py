@@ -42,7 +42,7 @@ def _lib():
     fn = cuda_build.load("blend_forward.cu").mtgs_blend_forward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, ctypes.c_longlong, p, p, p, i, i, i, i, i, p, p, p]
+        fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, i, i, i, i, i, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -137,6 +137,14 @@ def _check_inputs(slab_t, ranges, c_total):
                              "the slab's device")
 
 
+def tile_order(tile_counts: torch.Tensor) -> torch.Tensor:
+    """The tiles in descending `tile_counts` order, ties in index order
+    (int32): both blend kernels launch their blocks in this order. The
+    card holds a fraction of the grid's blocks at once, and a deep tile
+    started last would run on alone."""
+    return torch.argsort(tile_counts, descending=True, stable=True).to(torch.int32)
+
+
 def blend_forward(slab_t, tile_offsets, tile_heads, tile_counts, tile_nchunks, *,
                   tile_size: int, tiles_x: int, c_total: int, tile_base: int = 0):
     """The forward blend: the CUDA kernel for CUDA tensors, the plain
@@ -156,10 +164,11 @@ def blend_forward(slab_t, tile_offsets, tile_heads, tile_counts, tile_nchunks, *
     rgb = torch.empty((T, c_total, P), dtype=torch.float32, device=slab_t.device)
     t_final = torch.empty((T, P), dtype=torch.float32, device=slab_t.device)
     ranges = [r.contiguous() for r in ranges]
+    order = tile_order(tile_counts)
     err = _lib()(
         slab_t.data_ptr(), slab_t.shape[1], ranges[0].data_ptr(),
-        ranges[1].data_ptr(), ranges[2].data_ptr(), T, tile_size, tiles_x,
-        int(tile_base), c_total, rgb.data_ptr(), t_final.data_ptr(),
+        ranges[1].data_ptr(), ranges[2].data_ptr(), order.data_ptr(), T, tile_size,
+        tiles_x, int(tile_base), c_total, rgb.data_ptr(), t_final.data_ptr(),
         torch.cuda.current_stream(slab_t.device).cuda_stream,
     )
     cuda_build.check(err, "blend_forward")
@@ -240,9 +249,7 @@ def blend_backward(slab_t, tile_offsets, tile_heads, tile_counts, tile_nchunks,
     g_slab = torch.zeros((W, cap), dtype=torch.float32, device=slab_t.device)
     ranges = [r.contiguous() for r in ranges]
     dense = [a.contiguous() for a in (rgb_tiles, t_final, g_rgb, g_t)]
-    # deepest tiles first: the card holds a fraction of the grid's blocks at
-    # once, and a deep tile started last would run on alone
-    order = torch.argsort(tile_counts, descending=True).to(torch.int32)
+    order = tile_order(tile_counts)
     err = _lib_backward()(
         slab_t.data_ptr(), cap, W, ranges[0].data_ptr(), ranges[1].data_ptr(),
         ranges[2].data_ptr(), order.data_ptr(), T, tile_size, tiles_x, c_total,

@@ -17,9 +17,11 @@ import torch
 
 import mtgs_tpu  # noqa: F401  (sets JAX's f32 matmul precision)
 from mtgs_tpu.raster.blend_pallas import blend_forward_pallas
-from mtgs_torch.raster.blend import blend_forward, blend_forward_plain
-from mtgs_torch.raster.chunk_math import CHUNK
-from tests.test_torch_kernels import assert_blend_close, make_blend_inputs
+from mtgs_torch.raster.blend import blend_forward, blend_forward_plain, tile_order
+from mtgs_torch.raster.chunk_math import (
+    ALPHA_MIN, CHUNK, NUM_GEOM, conic_coefficients, pixel_features, sigma,
+)
+from tests.test_torch_kernels import assert_blend_close, make_blend_inputs, make_edge_inputs
 
 
 def jax_blend(slab, ranges, *, tile_size, tiles_x, c_total):
@@ -109,3 +111,77 @@ def test_blend_wrapper_uses_plain_on_cpu():
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     with pytest.raises(ValueError, match="rows"):
         blend_forward(args[0][:8], *args[1:], tile_size=16, tiles_x=2, c_total=4)
+
+
+def test_tile_order_puts_the_deepest_tiles_first():
+    counts = torch.tensor([3, 9, 0, 9, 5, 3], dtype=torch.int32)
+    order = tile_order(counts)
+    assert order.dtype == torch.int32 and order.tolist() == [1, 3, 4, 0, 5, 2]
+
+
+def _support_range(qa, qb, q2, qd, qe, q5, lim):
+    """Float64 twin of csrc/blend_math.cuh's support_range, elementwise:
+    the (lo, hi) rows (or columns) outside which the splat's sigma exceeds
+    lim, in f32 as the kernels store them."""
+    inf = torch.full_like(qa, float("inf"))
+    h = 0.25 / qa
+    A = qb - q2 * q2 * h
+    B = qe - 2.0 * q2 * qd * h
+    Cq = q5 - qd * qd * h
+    ok = (qa > 0) & (A > 0) & torch.isfinite(B) & torch.isfinite(Cq)
+    disc = B * B - 4.0 * A * (Cq - lim)
+    real = ok & (disc >= 0)
+    empty = ok & ~(disc >= 0) & torch.isfinite(disc)  # sigma > lim everywhere
+    r = torch.sqrt(torch.where(real, disc, torch.zeros_like(disc)))
+    y1, y2 = (-B - r) * (0.5 / A), (-B + r) * (0.5 / A)
+    lo = torch.where(real, y1 - 1e-3 * (1.0 + y1.abs()), -inf)
+    hi = torch.where(real, y2 + 1e-3 * (1.0 + y2.abs()), inf)
+    lo, hi = torch.where(empty, inf, lo), torch.where(empty, -inf, hi)
+    return lo.float(), hi.float()
+
+
+def _support_box(Q, op):
+    """Float64 twin of csrc/blend_math.cuh's support_box: Q [6, m] and op
+    [m] (f32) -> x0, x1, y0, y1 [m] of tile-local pixel centres."""
+    q = Q.double()
+    S = (1024.0 * (q[0].abs() + q[1].abs() + q[2].abs()) + 32.0 * (q[3].abs() + q[4].abs())
+         + q[5].abs())
+    lim = torch.log(255.0 * op).double() + 1e-3 + 1e-5 * S  # logf of the f32 product
+    x0, x1 = _support_range(q[1], q[0], q[2], q[4], q[3], q[5], lim)
+    y0, y1 = _support_range(q[0], q[1], q[2], q[3], q[4], q[5], lim)
+    box = torch.stack([x0, x1, y0, y1])
+    box = torch.where(torch.isfinite(lim), box, torch.tensor([-1.0, 1.0, -1.0, 1.0])[:, None]
+                      * float("inf"))
+    return torch.where(op > 0, box, torch.tensor([1.0, -1.0, 1.0, -1.0])[:, None]
+                       * float("inf"))
+
+
+def test_support_box_is_conservative():
+    """Both blend kernels leave out a warp's pixels outside an
+    intersection's support box. On random splats (faint deep tiles,
+    near-opaque and half-covered ones) and on ones at the edge of the test
+    (far, needles, opacity just above 1/255), every (pixel, intersection)
+    pair that chunk_math's sigma and the 1/255 test let composite lies
+    inside the twin's box; and the boxes leave out a good part of the pairs."""
+    cases = [(*make_blend_inputs(4, tiles_x=3, tiles_y=2, tile_size=32, c_total=1,
+                                 deep_tiles=(1,), faint_tiles=(3,), half_tiles=(4,)), 32, 3),
+             (*make_edge_inputs(8, tile_size=16, c_total=1), 16, 2),
+             (*make_edge_inputs(9, tile_size=32, c_total=1), 32, 2)]
+    outside = pairs = 0
+    for slab, (offs, heads, counts, _), tile_size, tiles_x in cases:
+        F = pixel_features(tile_size, "cpu")
+        for t in range(len(counts)):
+            lo = int(offs[t] + heads[t])
+            geom = torch.from_numpy(slab[:NUM_GEOM, lo:lo + int(counts[t])])
+            ox = torch.tensor(float((t % tiles_x) * tile_size))
+            oy = torch.tensor(float((t // tiles_x) * tile_size))
+            Q = conic_coefficients(geom[:, None, :], ox, oy)
+            S = sigma(Q, F)[0]                                     # [PIX, m]
+            contrib = (S >= 0.0) & (geom[5] * torch.exp(-S) >= ALPHA_MIN)
+            x0, x1, y0, y1 = _support_box(Q[:, 0, :], geom[5])
+            x, y = F[3][:, None], F[4][:, None]
+            inside = (x >= x0) & (x <= x1) & (y >= y0) & (y <= y1)
+            assert not (contrib & ~inside).any(), (tile_size, t)
+            outside += int((~inside).sum())
+            pairs += inside.numel()
+    assert outside > 0.25 * pairs, (outside, pairs)  # 31% on these inputs
