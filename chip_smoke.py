@@ -28,9 +28,10 @@ plain PyTorch versions. Phases, each of which raises on failure:
      rgb, rgb_appearance and normal within 2e-3, accumulation within
      1e-3, depth within 1e-3 relative where alpha > 1e-2 (2e-3 at the
      few pixels the blend check allows to flip), the view's PSNR >= 50
-     dB; depth RMSE <= 1e-3 m; both forward kernels must have
-     launched once per view, and no view may truncate (n_intersections <=
-     max_intersections);
+     dB; depth RMSE <= 1e-3 m; every depth flip (a pixel above 1e-3)
+     must be a termination or a cut-off flip of the view's blend; both
+     forward kernels must have launched once per view, and no view may
+     truncate (n_intersections <= max_intersections);
   6. training: `Trainer.train` for TRAIN_STEPS steps of
      `mtgs_config(max_steps=TRAIN_STEPS)` with refine_every overridden to
      10 (one refine and one opacity reset fire at step 10), from a copy
@@ -55,7 +56,8 @@ plain PyTorch versions. Phases, each of which raises on failure:
      through the phase-4 cameras at 1920x1080 (max_intersections 2^23,
      where the fused key packing does not fit): every frame takes the
      classic path, truncates nothing and is held against the plain
-     path's render with phase 4's tolerances; ms per frame;
+     path's render with phase 4's tolerances and depth flip causes; ms per
+     frame;
   9. growth: `Trainer.train` for GROWTH_STEPS steps on a larger scene
      (its views make more than 0.85 of GROW_FROM pairs) from
      max_intersections GROW_FROM; the refine at step 10 grows it to
@@ -70,16 +72,20 @@ plain PyTorch versions. Phases, each of which raises on failure:
      phase-6 step, 21 steps after the opacity reset, where two launches
      must give equal bits; the blend forward and the segment sum also at
      a grown training step's, the segment sum twice at each for equal
-     bits), the classic three at a 1920x1080 frame's and a grown training
-     step's, timed with CUDA events (median of 20 after warm-up), with the
-     least time the card could take for the same work.
+     bits; the fused expansion also at phase 9's first, fused, step's),
+     the classic three at a 1920x1080 frame's and a grown training
+     step's; every blend pixel above BLEND_TOL must be a termination or a
+     cut-off flip; each timed on the device alone (`device_ms`: a CUDA
+     graph of DEVICE_K launches) and with the wrapper's host work
+     (`ms`: CUDA events around one call, median of 20 after warm-up),
+     with the least time the card could take for the same work.
 
 Prints the card line, the `{"kernels": [...]}` line and, last,
 `{"ok": true, "device": {...}}`; `--out DIR` also writes everything
 measured to DIR/chip_smoke.json; `--ab SOURCE=PATH` also times another
 version of a kernel source (the same C interface) against the
-checkout's at phase 5's inputs (`phase_ab`). Exits non-zero without a
-CUDA device.
+checkout's at phase 5's inputs, on device_ms (`phase_ab`). Exits non-zero
+without a CUDA device.
 
 Run from the repository root:  python3 chip_smoke.py [--seed 0]
 """
@@ -91,6 +97,7 @@ import contextlib
 import copy
 import ctypes
 import dataclasses
+import hashlib
 import importlib
 import itertools
 import json
@@ -111,7 +118,9 @@ from mtgs_torch.raster import (
     RasterizeConfig, binning, blend, cuda_build, expand_fused, expand_pairs, rasterize,
     segment_sum,
 )
-from mtgs_torch.raster.chunk_math import NUM_GEOM, round8
+from mtgs_torch.raster.chunk_math import (
+    ALPHA_MAX, ALPHA_MIN, LOG_T_EPS, NUM_GEOM, conic_coefficients, pixel_features, round8,
+)
 from mtgs_torch.raster.expand_fused import fused_fits
 from mtgs_torch.tools import render as render_tool
 from mtgs_torch.train.trainer import Batch, Trainer, loss_and_grads, render_view
@@ -127,6 +136,8 @@ PEAK_F32_PER_S = 67e12
 
 BLEND_TOL = 1e-4        # f32 rounding of the same formulation
 BLEND_FLIP_TOL = 2e-3   # a pixel where an alpha = 1/255 or sigma = 0 cut-off flips
+CUT_ULPS = 16           # cutoff_flips: the rounding band of a cut-off decision, in f32 ulps
+DEVICE_K = 20           # device_ms: the launches in one CUDA graph
 PSNR_MIN = 50.0
 # each view of the kernel path against its plain render (the golden
 # tolerances the CPU tests hold the port to against the JAX package)
@@ -279,7 +290,9 @@ def make_views(seed: int, n_views: int, width: int, height: int, focal: float):
 # ------------------------------------------------------------- measuring
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
-    """Median milliseconds of fn() over `reps` runs, CUDA events, after warm-up."""
+    """Median milliseconds of fn() over `reps` runs, CUDA events, after
+    warm-up. The window holds the wrapper's host work too (checks,
+    allocations, the ctypes call): the device waits for the enqueue."""
     for _ in range(warmup):
         fn()
     times = []
@@ -292,6 +305,39 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_ms(fn, k: int = DEVICE_K, reps: int = 5) -> float:
+    """Milliseconds of one fn() on the device alone: a CUDA graph of k
+    calls of fn, replayed after one warm-up replay, over k (the median of
+    `reps` replays, CUDA events). The graph holds only the device work of
+    the wrapper (its kernel and any torch operation it launches), so the
+    host's checks, allocations and ctypes call are out of the window."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(k):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / k)
+    del graph
+    return float(np.median(times))
+
+
+def timed(fn, **cuda_kw) -> dict:
+    """A kernel wrapper's `ms` (cuda_ms, host work inside), `device_ms`
+    and the difference, the wrapper's host cost."""
+    ms, dev_ms = cuda_ms(fn, **cuda_kw), device_ms(fn)
+    return dict(ms=ms, device_ms=dev_ms, host_ms=ms - dev_ms)
 
 
 def blend_errors(got, want):
@@ -321,6 +367,84 @@ def termination_flips(got, want, slab_t, c_total):
     explained = ((rgb_g - rgb_w).abs() <= (d_t * col_max + BLEND_TOL) * scale).all(dim=1)
     at_cut = ((torch.minimum(t_g, t_w) - 1e-4).abs() <= 1e-8)
     return explained & at_cut
+
+
+def cutoff_flips(got, want, slab_t, tile_offsets, tile_heads, tile_counts, *, tile_size,
+                 tiles_x, c_total, pixels, tile_base=0, group=64):
+    """Of the pixels `pixels` (bool [T, PIX]), those where the two blends
+    took a pair on different sides of a cut-off (BLEND_FLIP_TOL's cases):
+    the pixel's tile holds pairs, reached before the blend ended, whose
+    alpha lies within CUT_ULPS float32 ulps (of the sum of sigma's terms'
+    magnitudes, plus one) of 1/255, or whose sigma lies within CUT_ULPS
+    ulps of those magnitudes from 0; and each colour channel's error is
+    within those pairs' summed weight (the transmittance before the pair
+    times its alpha) times the channel's span in the slab (its largest
+    value less its smallest, 0 included: what letting one pair in or out
+    moves a pixel by at most), plus BLEND_TOL (scaled as in
+    blend_errors), the transmittance's within that weight plus BLEND_TOL.
+    The pairs are replayed with chunk_math's formulas (the plain
+    version's), the transmittance in float64. Returns (the mask, a list
+    of per-pixel diagnostics for the pixels it leaves out)."""
+    rgb_g, t_g = got
+    rgb_w, t_w = want
+    dev = slab_t.device
+    scale = torch.clamp(rgb_w.abs().amax(dim=(0, 2)), min=1.0)
+    cols = slab_t[NUM_GEOM:NUM_GEOM + c_total]
+    span = cols.amax(dim=1).clamp(min=0.0) - cols.amin(dim=1).clamp(max=0.0)
+    F = pixel_features(tile_size, dev)
+    eps = CUT_ULPS * 2.0 ** -23
+    out = torch.zeros_like(pixels)
+    diag = []
+    t_idx, p_idx = pixels.nonzero(as_tuple=True)
+    for g0 in range(0, t_idx.numel(), group):
+        t, p = t_idx[g0:g0 + group], p_idx[g0:g0 + group]
+        count = tile_counts[t].to(torch.int64)
+        lane = torch.arange(max(int(count.max()), 1), device=dev)
+        valid = lane[None, :] < count[:, None]
+        col = torch.clamp(tile_offsets[t].to(torch.int64) + tile_heads[t] + lane[None, :],
+                          max=slab_t.shape[1] - 1)
+        geom = slab_t[:NUM_GEOM, col]                                  # [6, K, n]
+        tid = tile_base + t
+        ox = ((tid % tiles_x) * tile_size).to(torch.float32)[:, None]
+        oy = ((tid // tiles_x) * tile_size).to(torch.float32)[:, None]
+        Q = conic_coefficients(geom, ox, oy)
+        f = F[:, p][:, :, None]                                        # [6, K, 1]
+        S = f[0] * Q[0]
+        for k in range(1, 6):
+            S = S + f[k] * Q[k]
+        mag = (f * Q).abs().sum(dim=0)
+        raw = geom[5] * torch.exp(-S)
+        taken = valid & (S >= 0.0) & (raw >= ALPHA_MIN)
+        L = torch.log1p(-(torch.clamp(raw, max=ALPHA_MAX) * taken).double())
+        before = torch.cumsum(L, dim=1) - L
+        reached = valid & (before > LOG_T_EPS - eps)
+        near = reached & (((raw - ALPHA_MIN).abs() <= ALPHA_MIN * eps * (1.0 + mag))
+                          | (S.abs() <= eps * mag))
+        w = (torch.exp(before) * torch.clamp(raw, max=ALPHA_MAX).double() * near).sum(dim=1)
+        err_c = (rgb_g[t, :, p] - rgb_w[t, :, p]).abs().double()      # [K, c]
+        err_t = (t_g[t, p] - t_w[t, p]).abs().double()
+        ok = ((err_c <= w[:, None] * span.double() + BLEND_TOL * scale.double()).all(dim=1)
+              & (err_t <= w + BLEND_TOL) & (w > 0))
+        out[t[ok], p[ok]] = True
+        for i in (~ok).nonzero()[:, 0].tolist():
+            diag.append(dict(tile=int(t[i]), pixel=int(p[i]), near_pairs=int(near[i].sum()),
+                             weight=float(w[i]), err=[float(e) for e in err_c[i]],
+                             err_t=float(err_t[i]), t_final=float(t_w[t[i], p[i]])))
+    return out, diag
+
+
+def flip_causes(got, want, a, kw, pixels):
+    """Of the pixels `pixels` of one blend (captured arguments a, kw), how
+    many show each cause for the two blends' difference: a termination
+    flip, a cut-off flip, or none. Returns (the counts, diagnostics of
+    up to 8 pixels with neither)."""
+    slab_t, offs, heads, counts, _ = a
+    term = termination_flips(got, want, slab_t, kw["c_total"]) & pixels
+    cut, diag = cutoff_flips(got, want, slab_t, offs, heads, counts, pixels=pixels & ~term,
+                             **kw)
+    none = pixels & ~term & ~cut
+    return dict(termination=int(term.sum()), cutoff=int(cut.sum()),
+                none=int(none.sum())), diag[:8]
 
 
 @contextlib.contextmanager
@@ -364,14 +488,16 @@ def capturing(args: dict):
 
 
 @contextlib.contextmanager
-def views_recorded(outs: list):
+def views_recorded(outs: list, calls: list):
     """Appends to `outs` the images of every `render_view` that
-    `evaluate_scene` makes, passing them through unchanged."""
+    `evaluate_scene` makes, and to `calls` its arguments, passing them
+    through unchanged."""
     saved = pipeline_mod.render_view
 
     def call(*a, **kw):
         out = saved(*a, **kw)
         outs.append({k: out[k] for k in (*VIEW_TOL, "depth")})
+        calls.append((a, kw))
         return out
 
     pipeline_mod.render_view = call
@@ -397,6 +523,52 @@ def view_errors(got: dict, want: dict) -> dict:
     err["covered"] = float(covered.float().mean())
     err["psnr"] = float(masked_psnr(got["rgb_appearance"], want["rgb_appearance"]))
     return err
+
+
+def depth_flip_mask(got: dict, want: dict) -> torch.Tensor:
+    """[H, W]: the covered pixels (alpha > 1e-2) whose depth is off the
+    plain render's by more than DEPTH_REL_TOL relative (view_errors'
+    depth_flips)."""
+    covered = want["accumulation"] > 1e-2
+    rel = (got["depth"] - want["depth"]).abs() / want["depth"].abs()
+    mask = covered & (rel > DEPTH_REL_TOL)
+    return mask.reshape(mask.shape[:2])
+
+
+def require_depth_flip_causes(render, got: dict, want: dict, label: str) -> dict:
+    """Every depth flip of a view (depth_flip_mask: the pixels the flat
+    BLEND_FLIP_TOL allowance of require_view_close admits) must come from a
+    termination or a cut-off flip of the view's blend (`flip_causes`):
+    `render` renders the view again on the kernel path, with its one blend's
+    arguments and output recorded (its depth bit-equal to `got`'s), and
+    the pixels are looked up in that blend against its plain version.
+    Returns the causes' counts."""
+    mask = depth_flip_mask(got, want)
+    if not mask.any():
+        return dict(termination=0, cutoff=0, none=0)
+    calls = []
+    saved = KERNEL_HOMES["blend_forward"].blend_forward
+
+    def record(*a, **kw):
+        out = saved(*a, **kw)
+        calls.append((a, kw, out))
+        return out
+
+    with kernels_replaced({"blend_forward": record}):
+        again = render()
+    torch.cuda.synchronize()
+    require(len(calls) == 1 and torch.equal(again["depth"], got["depth"]),
+            f"{label}: rendered again, the view's depth is not the run's ({len(calls)} blends)")
+    a, kw, out = calls[0]
+    plain = blend.blend_forward_plain(*a, **kw)
+    ts, tx = kw["tile_size"], kw["tiles_x"]
+    ys, xs = mask.nonzero(as_tuple=True)
+    pixels = torch.zeros((a[1].shape[0], ts * ts), dtype=torch.bool, device=mask.device)
+    pixels[(ys // ts) * tx + xs // ts, (ys % ts) * ts + xs % ts] = True
+    causes, diag = flip_causes(out, plain, a, kw, pixels)
+    require(not causes["none"], f"{label}: {causes['none']} of {int(mask.sum())} depth flips "
+            f"show neither a termination nor a cut-off flip in the blend: {diag}")
+    return causes
 
 
 def launch_delta(before: dict) -> dict:
@@ -495,8 +667,8 @@ def phase_main(args, dev):
             f"{cfg.max_intersections}: the render would be truncated")
 
     # the serving path: kernel launches counted from here ...
-    kernel_outs = []
-    with views_recorded(kernel_outs):
+    kernel_outs, kernel_calls = [], []
+    with views_recorded(kernel_outs, kernel_calls):
         cuda_build.reset_launches()
         t1 = time.perf_counter()
         result = evaluate_scene(params, aux, cfg, batches, eval_cfg=EvalConfig(),
@@ -514,6 +686,10 @@ def phase_main(args, dev):
     per_view = [view_errors(g, w) for g, w in zip(kernel_outs, plain_outs)]
     for i, e in enumerate(per_view):
         require_view_close(e, cfg.width * cfg.height, f"view {i}")
+        a, kw = kernel_calls[i]
+        e["depth_flip_causes"] = require_depth_flip_causes(
+            lambda: pipeline_mod.render_view(*a, **kw), kernel_outs[i], plain_outs[i],
+            f"view {i}")
     rmse = {k: v for k, v in result.items() if k.endswith("depth_RMSE")}
     require(all(v <= DEPTH_RMSE_MAX for v in rmse.values()),
             f"depth RMSE above {DEPTH_RMSE_MAX} m: {rmse}")
@@ -858,6 +1034,8 @@ def phase_render_tool(args, params, aux, views, dev):
         plain_ms.append(1e3 * (time.perf_counter() - t1))
         e = view_errors(got, want)
         require_view_close(e, W * H, f"frame {i}")
+        e["depth_flip_causes"] = require_depth_flip_causes(
+            lambda: saved(*c["args"][0], **c["args"][1]), got, want, f"frame {i}")
         per_frame.append(dict(e, n_intersections=n_isect, ms=c["ms"]))
     res = dict(size=[W, H], frames=n, max_intersections=RENDER_I, fov_deg=fov,
                launches=launches, tool_seconds=tool_s,
@@ -886,7 +1064,9 @@ def phase_growth(args, dev):
     isect_grow_frac of GROW_FROM pairs) trains from max_intersections
     GROW_FROM (fused) at 960x540; the refine after step 9 grows it to
     GROW_TO, where the fused key packing no longer fits, and every later
-    step takes the classic path."""
+    step takes the classic path. Returns (the trainer, the results, the
+    kernel wrappers' arguments in a grown gradient step, expand_fused's in
+    the run's first step, the run's launches)."""
     cfg = train_config(args, max_intersections=GROW_FROM)
     tiles = cfg.raster_config().tiles_x * cfg.raster_config().tiles_y
     require(fused_fits(GROW_FROM, tiles, 1) and not fused_fits(GROW_TO, tiles, 1),
@@ -931,11 +1111,13 @@ def phase_growth(args, dev):
         last.update(cuda_build.LAUNCHES)
 
     torch.cuda.synchronize()
+    steps_captured = {}  # the kernel wrappers' arguments of their first calls: step 0 fused
     # the training path across the growth: kernel launches counted from here ...
     cuda_build.reset_launches()
     last.update(cuda_build.LAUNCHES)
     t0 = time.perf_counter()
-    trainer.train(GROWTH_STEPS, log_every=1, callback=on_step)
+    with capturing(steps_captured):
+        trainer.train(GROWTH_STEPS, log_every=1, callback=on_step)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = dict(cuda_build.LAUNCHES)
@@ -968,7 +1150,7 @@ def phase_growth(args, dev):
     log(f"# growth: n_intersections per step {res['n_intersections']}; total loss "
         f"{[round(v, 5) for v in losses]}; refines {trainer.refine_events}, resets "
         f"{trainer.reset_steps}")
-    return trainer, res, captured, launches
+    return trainer, res, captured, {"expand_fused": steps_captured["expand_fused"]}, launches
 
 
 def row_errors(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
@@ -979,12 +1161,37 @@ def row_errors(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
     return torch.where(scale > 0, err / torch.clamp(scale, min=1e-30), err)
 
 
+def expand_fused_timing(captured):
+    """expand_fused on one capture's arguments against its plain version
+    (every output torch.equal), timed, with its bytes bound."""
+    (table, offsets, packed, total, I), kw = captured["expand_fused"]
+    got = expand_fused.expand_fused(table, offsets, packed, total, I, **kw)
+    want = expand_fused.expand_fused_plain(table, offsets, packed, total, I, **kw)
+    torch.cuda.synchronize()
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            "expand_fused kernel differs from its plain version")
+    nw, n = table.shape
+    n_live = int((torch.diff(offsets, append=total) > 0).sum())
+    # the live owners' table columns, offsets, span words and total read
+    # once; key, src and round8(nw) attribute rows written once
+    e_bytes = 4 * (nw * n_live + 2 * n + 1) + 4 * I * (2 + got[2].shape[0])
+    return dict(
+        max_abs_err=float((got[2] - want[2]).abs().max()),
+        **timed(lambda: expand_fused.expand_fused(table, offsets, packed, total, I, **kw)),
+        plain_ms=cuda_ms(lambda: expand_fused.expand_fused_plain(
+            table, offsets, packed, total, I, **kw)),
+        bound_ms=1e3 * e_bytes / PEAK_BYTES_PER_S, bound_by="bytes", bytes=e_bytes,
+        shapes=dict(table=list(table.shape), I=I, total=int(total), nw=nw, n_live=n_live))
+
+
 def forward_timing(a, kw, plain_reps: int = 5, term_flips: bool = False):
     """blend_forward on one capture's arguments against its plain version
     (BLEND_TOL, BLEND_FLIP_TOL at up to 0.1% of pixels; with `term_flips`
-    a pixel of those may instead be a termination flip), timed, with the
-    least time the card could take for the blend of these inputs. Returns
-    (the row's numbers, the kernel's output)."""
+    a pixel of those may instead be a termination flip beyond
+    BLEND_FLIP_TOL; every pixel above BLEND_TOL must be a termination or a
+    cut-off flip, `flip_causes`), timed, with the least time the card
+    could take for the blend of these inputs. Returns (the row's numbers,
+    the kernel's output)."""
     slab_t, offs, heads, counts, nchunks = a
     c_total, T = kw["c_total"], offs.shape[0]
     got = blend.blend_forward(*a, **kw)
@@ -992,16 +1199,20 @@ def forward_timing(a, kw, plain_reps: int = 5, term_flips: bool = False):
     want = blend.blend_forward_plain(*a, **kw, stats=stats)
     torch.cuda.synchronize()
     errs = blend_errors(got, want)
-    err, flips, n_pix = float(errs.max()), int((errs > BLEND_TOL).sum()), errs.numel()
-    term = torch.zeros_like(errs, dtype=torch.bool)
+    flagged = errs > BLEND_TOL
+    err, flips, n_pix = float(errs.max()), int(flagged.sum()), errs.numel()
+    term = torch.zeros_like(flagged)
     if term_flips:
-        term = termination_flips(got, want, slab_t, c_total) & (errs > BLEND_TOL)
+        term = termination_flips(got, want, slab_t, c_total) & flagged
     n_term = int(term.sum())
     err_rest = float(torch.where(term, 0.0, errs).max())
     require(flips <= max(2, n_pix // 1000) and err_rest <= BLEND_FLIP_TOL,
             f"blend_forward: max err {err} ({err_rest} outside {n_term} termination flips), "
             f"{flips} pixels above {BLEND_TOL} (allowed {max(2, n_pix // 1000)} up to "
             f"{BLEND_FLIP_TOL}{', or termination flips' if term_flips else ''})")
+    causes, diag = flip_causes(got, want, a, kw, flagged)
+    require(not causes["none"], f"blend_forward: {causes['none']} of the {flips} pixels above "
+            f"{BLEND_TOL} show neither a termination nor a cut-off flip: {diag}")
     # the slab columns the early exit must read: per tile, those up to the
     # furthest intersection any of its pixels evaluates
     b_bytes = 4 * ((NUM_GEOM + c_total) * stats["pairs_read"] + 3 * T
@@ -1017,7 +1228,7 @@ def forward_timing(a, kw, plain_reps: int = 5, term_flips: bool = False):
         tol=dict(abs=BLEND_TOL, flip=BLEND_FLIP_TOL, flip_pixels_max=max(2, n_pix // 1000),
                  termination_flips_allowed=term_flips),
         flip_pixels=flips, termination_flips=n_term, max_err_outside_termination_flips=err_rest,
-        ms=cuda_ms(lambda: blend.blend_forward(*a, **kw)),
+        flip_causes=causes, **timed(lambda: blend.blend_forward(*a, **kw)),
         tile_order_ms=cuda_ms(lambda: blend.tile_order(counts)),  # inside ms: the wrapper's sort
         plain_ms=cuda_ms(lambda: blend.blend_forward_plain(*a, **kw), reps=plain_reps,
                          warmup=1),
@@ -1046,17 +1257,21 @@ def segment_timing(rows, src, n, dev):
     require(torch.equal(got, again), "dense_segment_sum: two launches differ")
     live_slots = int((src < n).sum())
     W = rows.shape[0]
+    src64 = src.to(torch.int64)
+
+    def index_add():
+        return torch.zeros((W, n + 1), dtype=torch.float32, device=dev).index_add_(1, src64, rows)
+
     # the live slots' rows and every slot's owner read once, the output written once
     s_bytes = 4 * (W * live_slots + src.numel() + W * (n + 1))
-    src64 = src.to(torch.int64)
     return dict(
         max_abs_err=float((got - want).abs().max()), max_scaled_err=err,
         tol=dict(max_scaled=SEGMENT_TOL), repeat_bit_equal=True,
-        ms=cuda_ms(lambda: segment_sum.dense_segment_sum(rows, src, n)),
+        **timed(lambda: segment_sum.dense_segment_sum(rows, src, n)),
         plain_ms=cuda_ms(lambda: segment_sum.dense_segment_sum_plain(rows, src, n)),
         bound_ms=1e3 * s_bytes / PEAK_BYTES_PER_S, bound_by="bytes",
-        library_ms=cuda_ms(lambda: torch.zeros((W, n + 1), dtype=torch.float32, device=dev)
-                           .index_add_(1, src64, rows)),
+        library_ms=cuda_ms(index_add),
+        library_device_ms=device_ms(index_add),
         shapes=dict(rows=list(rows.shape), n=n, live_slots=live_slots,
                     longest_segment=int(torch.unique_consecutive(
                         src[src < n], return_counts=True)[1].max()) if live_slots else 0),
@@ -1099,7 +1314,7 @@ def backward_timing(a, kw):
     row = dict(
         max_abs_err=float((got - want).abs().max()), max_scaled_err=err,
         row_errors=errs.tolist(),
-        ms=cuda_ms(lambda: blend.blend_backward(*a, **kw)),
+        **timed(lambda: blend.blend_backward(*a, **kw)),
         plain_ms=cuda_ms(lambda: blend.blend_backward_plain(*a, **kw), reps=3, warmup=1),
         bound_ms=max(bb_bound_bytes, bb_bound_ops),
         bound_by="operations" if bb_bound_ops >= bb_bound_bytes else "bytes",
@@ -1114,10 +1329,11 @@ def backward_timing(a, kw):
 
 @torch.no_grad()
 def phase_kernels(by_path, captured, train_captured, faint_captured, render_captured,
-                  growth_captured, dev):
+                  growth_captured, growth_fused_captured, dev):
     """Each kernel against its plain version: the fused forward two at one
     serving view's shapes (`captured`; the blend forward also at a faint
-    step's and a grown training step's), the backward two at one training
+    step's and a grown training step's, the expansion also at a fused step
+    of phase 9 before the growth's), the backward two at one training
     step's (the blend backward also at a faint step's, and twice there for
     equal bits; the segment sum also at a grown step's, and twice at each
     for equal bits), the classic three (classic_kernel_rows) at a
@@ -1126,31 +1342,16 @@ def phase_kernels(by_path, captured, train_captured, faint_captured, render_capt
     launches = {k: sum(c[k] for c in by_path.values()) for k in KERNELS}
     kernels = []
 
-    # expand_fused: exact integer math and copies
-    (table, offsets, packed, total, I), kw = captured["expand_fused"]
-    got = expand_fused.expand_fused(table, offsets, packed, total, I, **kw)
-    want = expand_fused.expand_fused_plain(table, offsets, packed, total, I, **kw)
-    torch.cuda.synchronize()
-    require(all(torch.equal(g, w) for g, w in zip(got, want)),
-            "expand_fused kernel differs from its plain version")
-    err = float((got[2] - want[2]).abs().max())
-    nw, n = table.shape
-    n_live = int((torch.diff(offsets, append=total) > 0).sum())
-    e_bytes = 4 * (nw * n_live + 2 * n + 1) + 4 * I * (2 + got[2].shape[0])
-    e_bound = 1e3 * e_bytes / PEAK_BYTES_PER_S
+    # expand_fused: exact integer math and copies, at a serving view and
+    # at a fused training step of phase 9 before the growth
     kernels.append(dict(
         name="expand_fused", route="cuda", source="mtgs_torch/csrc/expand_fused.cu",
         replaces="mtgs_tpu/raster/expand_fused.py:205",
         tpu_kernel="mtgs_tpu/raster/expand_fused.py::expand_fused",
-        launches=launches["expand_fused"], max_abs_err=err, tol=0.0,
-        ms=cuda_ms(lambda: expand_fused.expand_fused(table, offsets, packed, total, I, **kw)),
-        plain_ms=cuda_ms(lambda: expand_fused.expand_fused_plain(
-            table, offsets, packed, total, I, **kw)),
-        bound_ms=e_bound, bound_by="bytes", library_ms=None,
+        launches=launches["expand_fused"], tol=0.0, **expand_fused_timing(captured),
+        at_growth=expand_fused_timing(growth_fused_captured), library_ms=None,
         library_note="no single PyTorch call computes it (searchsorted + gathers is "
-                     "the plain version)",
-        shapes=dict(table=list(table.shape), I=I, total=int(total), nw=nw),
-        bytes=e_bytes))
+                     "the plain version)"))
 
     # blend_forward: the front-to-back blend at a serving view, on the
     # faint scene after the opacity reset (one more phase-6 step) and at a
@@ -1206,13 +1407,11 @@ def phase_kernels(by_path, captured, train_captured, faint_captured, render_capt
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
         k["kernel_ms"] = k["ms"]
-        log(f"# kernel {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, "
-            f"bound {k['bound_ms']:.4f} ms by {k['bound_by']}), max err {k['max_abs_err']:.3g}")
-        for at in ("at_faint", "at_growth", "at_training"):
-            if at in k:
-                log(f"#   {at}: {k[at]['ms']:.4f} ms (plain {k[at]['plain_ms']:.3f} ms, bound "
-                    f"{k[at]['bound_ms']:.4f} ms by {k[at]['bound_by']}), max err "
-                    f"{k[at]['max_abs_err']:.3g}")
+        for label, row in [("kernel " + k["name"], k)] + [
+                ("  " + at, k[at]) for at in ("at_faint", "at_growth", "at_training") if at in k]:
+            log(f"# {label}: {row['device_ms']:.4f} ms on the device, {row['ms']:.4f} ms "
+                f"with the wrapper (plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} "
+                f"ms by {row['bound_by']}), max err {row['max_abs_err']:.3g}")
     return kernels
 
 
@@ -1235,7 +1434,7 @@ def classic_kernel_rows(render_captured, growth_captured, launches, dev):
         nbytes = 4 * (2 * n + 1) + 8 * I
         return dict(
             max_abs_err=0.0,
-            ms=cuda_ms(lambda: expand_pairs.expand_pairs(offsets, packed, total, I, **kw)),
+            **timed(lambda: expand_pairs.expand_pairs(offsets, packed, total, I, **kw)),
             plain_ms=cuda_ms(lambda: binning.searchsorted_expand(offsets, packed, total, I,
                                                                  **kw)),
             searchsorted_ms=cuda_ms(lambda: torch.searchsorted(offsets, slot, right=True,
@@ -1250,9 +1449,10 @@ def classic_kernel_rows(render_captured, growth_captured, launches, dev):
         require(torch.equal(got, plain(a)), f"{name} kernel differs from its plain version")
         nbytes = 4 * (a.numel() + got.numel())
         return dict(
-            max_abs_err=0.0, ms=cuda_ms(lambda: kernel(a)), plain_ms=cuda_ms(lambda: plain(a)),
+            max_abs_err=0.0, **timed(lambda: kernel(a)), plain_ms=cuda_ms(lambda: plain(a)),
             bound_ms=1e3 * nbytes / PEAK_BYTES_PER_S, bound_by="bytes",
-            library_ms=cuda_ms(lambda: library(a)), bytes=nbytes,
+            library_ms=cuda_ms(lambda: library(a)),
+            library_device_ms=device_ms(lambda: library(a)), bytes=nbytes,
             shapes=dict(input=list(a.shape), output=list(got.shape)))
 
     def pad_t(rows):
@@ -1293,7 +1493,8 @@ def classic_kernel_rows(render_captured, growth_captured, launches, dev):
 def build_other(path: Path):
     """A library built from another version of one of csrc/'s sources (the
     same C interface), with the port's flags and csrc/ on the include path."""
-    out = cuda_build.BUILD_DIR / f"other_{path.stem}.so"
+    digest = hashlib.sha256(path.read_bytes()).hexdigest()[:12]
+    out = cuda_build.BUILD_DIR / f"other_{path.stem}_{digest}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(cuda_build.CSRC),
                     "-o", str(out), str(path)], check=True, capture_output=True, text=True)
@@ -1321,13 +1522,14 @@ def legacy_blend_forward(lib, slab_t, tile_offsets, tile_heads, tile_counts, til
 
 
 def phase_ab(specs, serving_captured, train_captured, faint_captured, render_captured,
-             growth_captured, growth_faint_captured):
+             growth_captured, growth_faint_captured, growth_fused_captured):
     """`--ab SOURCE=PATH`: each kernel of another version of a source
     against the checkout's, on phase 5's captured inputs, in one process:
     its output held to the checkout kernel's (bit-equal for the blend
-    forward and the transposes, GRAD_TOL for the blend backward,
-    SEGMENT_TOL for the segment sum), then both timed in the order
-    checkout, other, other, checkout (cuda_ms each). A blend_forward.cu
+    forward, the expansions and the transposes, GRAD_TOL for the blend
+    backward, SEGMENT_TOL for the segment sum), then both timed in the
+    order checkout, other, other, checkout: device_ms, compared, and
+    cuda_ms (the wrapper's host work inside) each. A blend_forward.cu
     without the `mtgs_blend_forward_abi` marker is called with the
     argument list it takes (`legacy_blend_forward`)."""
     def bf(captured):
@@ -1358,6 +1560,11 @@ def phase_ab(specs, serving_captured, train_captured, faint_captured, render_cap
         x = captured[name][0][0]
         return lambda: getattr(blend, name)(x), torch.equal
 
+    def ex(module, name, captured):
+        a, kw = captured[name]
+        return (lambda: getattr(module, name)(*a, **kw),
+                lambda mine, other: all(torch.equal(x, y) for x, y in zip(mine, other)))
+
     cases = {
         "blend_forward.cu": dict(serving=bf(serving_captured), faint=bf(faint_captured),
                                  growth=bf(growth_captured),
@@ -1368,6 +1575,12 @@ def phase_ab(specs, serving_captured, train_captured, faint_captured, render_cap
             rows_to_attr_major_frame=tr("rows_to_attr_major", render_captured),
             rows_to_attr_major_grown=tr("rows_to_attr_major", growth_captured),
             attr_major_to_rows_grown=tr("attr_major_to_rows", growth_captured)),
+        "expand_fused.cu": dict(
+            serving=ex(expand_fused, "expand_fused", serving_captured),
+            growth_fused=ex(expand_fused, "expand_fused", growth_fused_captured)),
+        "expand_pairs.cu": dict(
+            frame=ex(expand_pairs, "expand_pairs", render_captured),
+            growth=ex(expand_pairs, "expand_pairs", growth_captured)),
     }
     out = []
     for spec in specs:
@@ -1391,12 +1604,15 @@ def phase_ab(specs, serving_captured, train_captured, faint_captured, render_cap
             torch.cuda.synchronize()
             require(same(mine, other), f"--ab {source} {label}: the other version's output "
                     "differs from the checkout's")
-            ms = dict(checkout=[], other=[])
+            dev_ms, ms = dict(checkout=[], other=[]), dict(checkout=[], other=[])
             for which in ("checkout", "other", "other", "checkout"):
                 with using(which):
+                    dev_ms[which].append(device_ms(call))
                     ms[which].append(cuda_ms(call))
-            out.append(dict(source=source, other=path, case=label, ms=ms))
-            log(f"# ab {source} {label}: checkout {ms['checkout']} ms, {path} {ms['other']} ms")
+            out.append(dict(source=source, other=path, case=label, device_ms=dev_ms, ms=ms))
+            log(f"# ab {source} {label}: device_ms checkout {dev_ms['checkout']}, {path} "
+                f"{dev_ms['other']} (ratio {np.mean(dev_ms['checkout']) / np.mean(dev_ms['other']):.3f}); "
+                f"ms checkout {ms['checkout']}, other {ms['other']}")
     return out
 
 
@@ -1459,7 +1675,7 @@ def main(argv=None):
                          "(kernel time by name)")
     ap.add_argument("--ab", action="append", default=[], metavar="SOURCE=PATH",
                     help="also time another version of a kernel source (the same C "
-                         "interface, e.g. a parent commit's csrc/segment_sum.cu; "
+                         "interface, e.g. a parent commit's csrc/expand_pairs.cu; "
                          "csrc/blend_forward.cu also before its tile_order argument) "
                          "against the checkout's at phase 5's inputs; repeatable")
     ap.add_argument("--out", type=Path, default=None,
@@ -1490,7 +1706,8 @@ def main(argv=None):
     render_captured = {}
     with capturing(render_captured):
         render_view(*frame_a, **frame_kw)
-    growth_trainer, growth_res, growth_captured, growth_launches = phase_growth(args, dev)
+    growth_trainer, growth_res, growth_captured, growth_fused_captured, growth_launches = \
+        phase_growth(args, dev)
     by_path = dict(serving=main_res["launches"], training=train_res["launches"],
                    classic_renders=classic_launches, classic_step=classic_step_launches,
                    render_tool=render_res["launches"], growth=growth_launches)
@@ -1498,9 +1715,10 @@ def main(argv=None):
     with capturing(serving_captured), torch.no_grad():
         render_view(params, aux, cfg, batch, 10**9, device=dev)
     kernels = phase_kernels(by_path, serving_captured, train_captured, faint_captured,
-                            render_captured, growth_captured, dev)
+                            render_captured, growth_captured, growth_fused_captured, dev)
     ab = phase_ab(args.ab, serving_captured, train_captured, faint_captured, render_captured,
-                  growth_captured, capture_faint_step(growth_trainer)) if args.ab else None
+                  growth_captured, capture_faint_step(growth_trainer),
+                  growth_fused_captured) if args.ab else None
     prof = None
     if args.profile:
         prof = dict(

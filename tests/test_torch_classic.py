@@ -144,10 +144,11 @@ def test_bin_gaussians_matches_jax(case):
 
 # -------------------------------------------------- pair expansion (5)
 
-def make_expand_case(N, tiles_x, tiles_y, seed, live_frac=0.9, max_span=6):
+def make_expand_case(N, tiles_x, tiles_y, seed, live_frac=0.9, max_span=6, zero_runs=()):
     """Depth-sorted offsets and span words as binning makes them (the
     cases of the JAX package's expand_pairs test, made anew here):
-    zero-pair gaussians at the tail."""
+    zero-pair gaussians at the tail; `zero_runs`, (start, length) pairs,
+    also empty runs inside the live range, which binning never makes."""
     r = np.random.default_rng(seed)
     live = r.random(N) < live_frac
     span_x = np.where(live, r.integers(1, max_span + 1, N), 0).astype(np.int32)
@@ -157,19 +158,27 @@ def make_expand_case(N, tiles_x, tiles_y, seed, live_frac=0.9, max_span=6):
     counts = (span_x * span_y).astype(np.int32)
     order = np.argsort(counts == 0, kind="stable")
     counts, tmin_x, tmin_y, span_x = counts[order], tmin_x[order], tmin_y[order], span_x[order]
+    for start, length in zero_runs:
+        counts[start:start + length] = 0
     offsets = (np.cumsum(counts) - counts).astype(np.int32)
     total = int(offsets[-1] + counts[-1])
     packed = (tmin_x | (tmin_y << 11) | (span_x << 22)).astype(np.int32)
     return offsets, packed, total
 
 
-EXPAND_CASES = [(0, 2000, 1 << 13, 30, 17), (1, 5000, 1 << 15, 60, 34),
-                (2, 512, 1 << 13, 8, 8), (3, 100, 1024, 4, 4)]  # the last: total > I
+# (seed, N, I, tx, ty, zero_runs); the fourth has total > I, the fifth runs
+# of zero-pair gaussians inside the live range, one of them longer than the
+# CUDA kernel's 1,024-owner window
+EXPAND_CASES = [(0, 2000, 1 << 13, 30, 17, ()), (1, 5000, 1 << 15, 60, 34, ()),
+                (2, 512, 1 << 13, 8, 8, ()), (3, 100, 1024, 4, 4, ()),
+                (4, 2000, 1 << 13, 30, 17, ((0, 3), (300, 1100), (1600, 7)))]
 
 
-@pytest.mark.parametrize("seed,N,I,tx,ty", EXPAND_CASES)
-def test_searchsorted_expand_matches_jax(seed, N, I, tx, ty):
-    offsets, packed, total = make_expand_case(N, tx, ty, seed)
+@pytest.mark.parametrize("seed,N,I,tx,ty,zero_runs", EXPAND_CASES,
+                         ids=["-".join(map(str, c[:5])) + ("-zero_runs" if c[5] else "")
+                              for c in EXPAND_CASES])
+def test_searchsorted_expand_matches_jax(seed, N, I, tx, ty, zero_runs):
+    offsets, packed, total = make_expand_case(N, tx, ty, seed, zero_runs=zero_runs)
     nt = tx * ty
     kw = dict(tiles_x=tx, num_tiles=nt)
     t_args = (torch.from_numpy(offsets), torch.from_numpy(packed),
@@ -180,6 +189,12 @@ def test_searchsorted_expand_matches_jax(seed, N, I, tx, ty):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     for g, w in zip(expand_pairs(*t_args, I, **kw), got):  # the wrapper, on the CPU
         assert torch.equal(g, w)
+    if zero_runs:
+        # the Pallas kernel telescopes offsets over a 640-wide window, which
+        # holds a block's owners only when every live gaussian owns a pair
+        # (as binning makes them): on a longer empty run it differs on live
+        # slots, so it is held on binning's inputs only
+        return
     # the Pallas kernel: equal on live slots, the sentinel tile on dead ones
     t_pl, s_pl = map(np.asarray, j_expand_pairs(*j_args, I, interpret=True, **kw))
     live = min(total, I)

@@ -31,9 +31,12 @@ GRAD_TOL = 2e-4  # blend backward: each gradient row's error over its largest |v
 SEGMENT_TOL = 1e-5  # segment sum: each row's error over its largest |value|
 
 
-def make_expand_inputs(seed, *, n_live, n_dead, nw, tiles_x, tiles_y):
+def make_expand_inputs(seed, *, n_live, n_dead, nw, tiles_x, tiles_y, zero_runs=()):
     """Depth-sorted inputs as the rasterizer builds them: live gaussians
-    own >= 1 pair each, zero-pair gaussians form the tail."""
+    own >= 1 pair each, zero-pair gaussians form the tail. `zero_runs`,
+    (start, length) pairs, also empty runs of gaussians inside the live
+    range, as no rasterizer input has them (the plain versions and the
+    kernels must stay exact there all the same)."""
     rng = np.random.default_rng(seed)
     n = n_live + n_dead
     tmin_x = rng.integers(0, tiles_x, n)
@@ -42,6 +45,8 @@ def make_expand_inputs(seed, *, n_live, n_dead, nw, tiles_x, tiles_y):
     span_y = np.minimum(1 + (rng.random(n) * (tiles_y - tmin_y)).astype(np.int64), 3)
     counts = (span_x * span_y).astype(np.int32)
     counts[n_live:] = 0
+    for start, length in zero_runs:
+        counts[start:start + length] = 0
     packed = (tmin_x | (tmin_y << 11) | (span_x << 22)).astype(np.int32)
     offsets = (np.cumsum(counts) - counts).astype(np.int32)
     total = np.int32(counts.sum())
@@ -133,6 +138,12 @@ def assert_blend_close(got, want, label):
         assert err.max() <= FLIP_TOL, (label, part, float(err.max()))
 
 
+def case_ids(cases):
+    """Test ids: a case's numbers joined by '-' (pytest's own ids before
+    the last field), then '-zero_runs' where it has such runs."""
+    return ["-".join(map(str, c[:-1])) + ("-zero_runs" if c[-1] else "") for c in cases]
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -140,21 +151,33 @@ def cuda():
     return torch.device("cuda")
 
 
-# (n_live, n_dead, I, tiles_x, tiles_y, nw): small shapes, then the main
-# path's (960x540 at tile 32, ~1M gaussians, I = 2^21, c_total 7)
+# (n_live, n_dead, I, tiles_x, tiles_y, nw, zero_runs): small shapes, then
+# the main path's (960x540 at tile 32, ~1M gaussians, I = 2^21, c_total 7);
+# then a 2,048-slot block of the kernel that straddles total, a capacity
+# with no live slot (total 0), a truncating one over several blocks
+# (total > I), n below one block, and runs of zero-pair gaussians inside
+# the live range, one of each longer than a warp's 256-owner shared window
 EXPAND_CASES = [
-    (300, 5, 2048, 6, 4, 13),
-    (200, 700, 2048, 6, 4, 10),
-    (900, 20, 1024, 6, 4, 13),
-    (700_000, 304_096, 1 << 21, 30, 17, 13),
+    (300, 5, 2048, 6, 4, 13, ()),
+    (200, 700, 2048, 6, 4, 10, ()),
+    (900, 20, 1024, 6, 4, 13, ()),
+    (700_000, 304_096, 1 << 21, 30, 17, 13, ()),
+    (1500, 40, 8192, 6, 4, 13, ()),
+    (0, 64, 1024, 6, 4, 13, ()),
+    (5000, 10, 4096, 6, 4, 13, ()),
+    (20, 1, 1024, 6, 4, 13, ()),
+    (6000, 50, 1 << 14, 6, 4, 13, ((0, 3), (2000, 3000), (5500, 7))),
+    (2000, 3000, 8192, 6, 4, 13, ((1, 1100),)),
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_live,n_dead,I,tiles_x,tiles_y,nw", EXPAND_CASES)
-def test_expand_kernel_matches_plain(cuda, n_live, n_dead, I, tiles_x, tiles_y, nw):
+@pytest.mark.parametrize("n_live,n_dead,I,tiles_x,tiles_y,nw,zero_runs", EXPAND_CASES,
+                         ids=case_ids(EXPAND_CASES))
+def test_expand_kernel_matches_plain(cuda, n_live, n_dead, I, tiles_x, tiles_y, nw, zero_runs):
     table, offsets, packed, total = make_expand_inputs(
-        7, n_live=n_live, n_dead=n_dead, nw=nw, tiles_x=tiles_x, tiles_y=tiles_y)
+        7, n_live=n_live, n_dead=n_dead, nw=nw, tiles_x=tiles_x, tiles_y=tiles_y,
+        zero_runs=zero_runs)
     args = [torch.from_numpy(a).to(cuda) for a in (table, offsets, packed)]
     args.append(torch.tensor([total], dtype=torch.int32, device=cuda))
     kw = dict(tiles_x=tiles_x, num_tiles=tiles_x * tiles_y)
@@ -437,27 +460,39 @@ def test_segment_sum_kernel_matches_plain(cuda, n, I, n_live, tail, extra):
     assert bool(got[:, torch.from_numpy(owned).to(cuda)].any(dim=0).all())
 
 
-# (n_live, n_dead, I, tiles_x, tiles_y, total_override): the expansion of
-# the classic path; None keeps the inputs' own total, 0 is an empty view.
-# Totals: 5,230 and 14,902 of I (every pair held), 1,275 of an I that is
-# no multiple of 256, 2,996 of 1,024 (overflow), and the 1920x1080
-# render's tile grid with 5,935,225 pairs of I = 2^23
+# (n_live, n_dead, I, tiles_x, tiles_y, total_override, zero_runs): the
+# expansion of the classic path; None keeps the inputs' own total, 0 is an
+# empty view. Totals: 5,230 and 14,902 of I (every pair held), 1,275 of an
+# I that is no multiple of 256, 2,996 of 1,024 (overflow), and the
+# 1920x1080 render's tile grid with 5,935,225 pairs of I = 2^23; then no
+# live gaussian with I % 4 != 0, n below one 4,096-slot block of the
+# kernel with I % 4 != 0, a truncating I of 3,001 over runs of zero-pair
+# gaussians inside the live range, and such runs at I = 2^15 and 2^14,
+# one of each longer than a warp's 256-owner shared window
 PAIRS_CASES = [
-    (800, 200, 1 << 13, 30, 17, None),
-    (2000, 500, 1 << 15, 60, 34, None),
-    (300, 212, 3000, 8, 8, None),
-    (900, 20, 1024, 6, 4, None),
-    (300, 5, 2048, 6, 4, 0),
-    (800_000, 200_000, 1 << 23, 60, 34, None),
+    (800, 200, 1 << 13, 30, 17, None, ()),
+    (2000, 500, 1 << 15, 60, 34, None, ()),
+    (300, 212, 3000, 8, 8, None, ()),
+    (900, 20, 1024, 6, 4, None, ()),
+    (300, 5, 2048, 6, 4, 0, ()),
+    (800_000, 200_000, 1 << 23, 60, 34, None, ()),
+    (0, 50, 3001, 8, 8, None, ()),
+    (20, 1, 1023, 6, 4, None, ()),
+    (4000, 900, 3001, 8, 8, None, ((10, 1500), (3000, 2))),
+    (6000, 50, 1 << 15, 30, 17, None, ((0, 3), (2000, 3000), (5500, 7))),
+    (3000, 4000, 1 << 14, 30, 17, None, ((1, 1100),)),
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_live,n_dead,I,tiles_x,tiles_y,total", PAIRS_CASES)
-def test_expand_pairs_kernel_matches_plain(cuda, n_live, n_dead, I, tiles_x, tiles_y, total):
+@pytest.mark.parametrize("n_live,n_dead,I,tiles_x,tiles_y,total,zero_runs", PAIRS_CASES,
+                         ids=case_ids(PAIRS_CASES))
+def test_expand_pairs_kernel_matches_plain(cuda, n_live, n_dead, I, tiles_x, tiles_y, total,
+                                           zero_runs):
     """Bit-equal to searchsorted_expand on every slot, dead ones included."""
     _, offsets, packed, own_total = make_expand_inputs(
-        11, n_live=n_live, n_dead=n_dead, nw=1, tiles_x=tiles_x, tiles_y=tiles_y)
+        11, n_live=n_live, n_dead=n_dead, nw=1, tiles_x=tiles_x, tiles_y=tiles_y,
+        zero_runs=zero_runs)
     total = own_total if total is None else total
     args = [torch.from_numpy(a).to(cuda) for a in (offsets, packed)]
     args.append(torch.tensor([total], dtype=torch.int32, device=cuda))
