@@ -7,8 +7,9 @@ with predicted normals, max_intersections 2^21) on a ~1M-gaussian scene
 made from `--seed`: serving (`scene_from_state_dict` -> `evaluate_scene`
 -> `render_view` -> `rasterize`), training (`Trainer.train` ->
 `train_step` -> `loss_and_grads` -> the differentiable `rasterize`), the
-render tool at nuPlan's 1920x1080 (`tools.render.render_camera_path`) and
-training across the capacity growth that leaves the fused path; and holds
+render tool at nuPlan's 1920x1080 (`tools.render.render_camera_path`),
+training across the capacity growth that leaves the fused path and the
+training campaign (`tools.campaign.main`); and holds
 the seven hand-written CUDA kernels (`csrc/expand_fused.cu`,
 `csrc/blend_forward.cu`, `csrc/blend_backward.cu`, `csrc/segment_sum.cu`,
 `csrc/expand_pairs.cu`, the two of `csrc/transpose.cu`) against their
@@ -66,13 +67,33 @@ plain PyTorch versions. Phases, each of which raises on failure:
      per step after; every step finite, none skipped or truncated, the
      loss on view 0 falls after the reset; one grown step's gradients
      against the plain path (2e-4);
+  10. campaign: `tools/campaign.py::main` in-process for CAMPAIGN_STEPS
+     steps on the JAX campaign's scene at full width (960x540, 600k
+     ground-truth gaussians, 100k seeds, a 5k instance, a 100k skybox, 3
+     traversals x 8 frames), with its ladder, rotating checkpoints and
+     mid-run teardown and resume, the launch counters zeroed just before
+     and read just after, and read around main's own calls: the ground
+     truth launched the kernels of the path `fused_fits` picks once per
+     view, each training step one forward and one backward blend, one
+     segment sum and one pair expansion, the eval one forward blend per
+     view; each ladder stage's size and max_intersections follow the
+     Trainer's rule from the (grown) base; refines and resets fall where
+     the preset's schedule puts them; no step non-finite, skipped or
+     truncated; at most 2 rotating checkpoints, the final one without
+     optimizer state; a trainer rebuilt from the output (capacities
+     padded, then loaded) repeats eval_result.json within 1e-6; the
+     seen-split PSNR beats the untrained scene's by 2 dB; one view of the
+     trained scene against the plain path with phase 4's tolerances, and
+     one gradient step against the plain path with the kernel forward
+     blend on both sides (GRAD_TOL; `trained_scene_grads` says why);
   5. kernels: each kernel against its plain version, the fused forward two
      at the shapes of one serving view, the backward two at those of one
      training step (both blends also on the faint scene of one more
      phase-6 step, 21 steps after the opacity reset, where two launches
      must give equal bits; the blend forward and the segment sum also at
      a grown training step's, the segment sum twice at each for equal
-     bits; the fused expansion also at phase 9's first, fused, step's),
+     bits; the fused expansion also at phase 9's first, fused, step's;
+     both blends also at phase 10's trained-scene step's),
      the classic three at a 1920x1080 frame's and a grown training
      step's; every blend pixel above BLEND_TOL must be a termination or a
      cut-off flip; each timed on the device alone (`device_ms`: a CUDA
@@ -99,8 +120,10 @@ import ctypes
 import dataclasses
 import hashlib
 import importlib
+import io
 import itertools
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -122,7 +145,9 @@ from mtgs_torch.raster.chunk_math import (
     ALPHA_MAX, ALPHA_MIN, LOG_T_EPS, NUM_GEOM, conic_coefficients, pixel_features, round8,
 )
 from mtgs_torch.raster.expand_fused import fused_fits
+from mtgs_torch.tools import campaign
 from mtgs_torch.tools import render as render_tool
+from mtgs_torch.train import checkpoint
 from mtgs_torch.train.trainer import Batch, Trainer, loss_and_grads, render_view
 
 # the modules (the packages' attributes of these names are functions)
@@ -162,6 +187,10 @@ RENDER_FRAMES = 6
 GROW_FROM, GROW_TO = 3_145_728, 4_718_592  # phase 9: the preset's first and second growth
 GROWTH_STEPS = 20
 GRAD_STEP = 10          # the step of the gradient check: SH degree 3, sharp-shape gate open
+CAMPAIGN_STEPS = 600    # phase 10: refines at 100 and 200, a reset at 100, resume at 300
+CAMPAIGN_SAVE_EVERY = 150
+CAMPAIGN_PSNR_GAIN = 2.0  # dB: the trained seen split over the untrained seed scene's
+CAMPAIGN_EVAL_TOL = 1e-6  # a rebuilt trainer's eval against eval_result.json
 # the training start: the scene's alive rows jittered by these standard deviations
 JITTER = dict(means=0.05, features_dc=0.3, opacities=0.5)
 
@@ -1153,6 +1182,389 @@ def phase_growth(args, dev):
     return trainer, res, captured, {"expand_fused": steps_captured["expand_fused"]}, launches
 
 
+@contextlib.contextmanager
+def wrapped(owner, name: str, wrap):
+    """owner.name replaced by wrap(owner.name) inside the with block."""
+    saved = getattr(owner, name)
+    setattr(owner, name, wrap(saved))
+    try:
+        yield
+    finally:
+        setattr(owner, name, saved)
+
+
+def campaign_recorders(rec: dict):
+    """Wrappers that record, around `campaign.main`'s own calls, what phase
+    10 checks: the launches of the ground-truth build, of each
+    `Trainer.train` call and of the eval; each ladder stage switch; each
+    step's host time (between synchronizes), scale, pair count and
+    capacity; the refine and reset steps."""
+    def gt(fn):
+        def call(*a, **kw):
+            before = dict(cuda_build.LAUNCHES)
+            t0 = time.perf_counter()
+            scene = fn(*a, **kw)
+            torch.cuda.synchronize()
+            rec["gt"].append(dict(launches=launch_delta(before), views=scene.frame_rows,
+                                  n_gaussians=kw["n_bg"] + kw["n_instance"],
+                                  max_intersections=kw["gt_max_intersections"],
+                                  seconds=time.perf_counter() - t0))
+            return scene
+        return call
+
+    def stage(fn):
+        def call(self, scale):
+            fn(self, scale)
+            rec["stages"].append(dict(
+                step=self.state.step, scale=scale, width=self.cfg.width,
+                height=self.cfg.height, max_intersections=self.cfg.max_intersections,
+                base=self._base_cfg.max_intersections))
+        return call
+
+    def step(fn):
+        def call(self, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = fn(self, batch)
+            torch.cuda.synchronize()
+            rec["steps"].append(dict(
+                ms=1e3 * (time.perf_counter() - t0), scale=self._cur_scale,
+                limit=self.cfg.max_intersections, n=m["n_intersections"],
+                loss=m["total_loss"], skipped=m["nonfinite_grad_step"]))
+            return m
+        return call
+
+    def train(fn):
+        def call(self, n, **kw):
+            before = dict(cuda_build.LAUNCHES)
+            s0, r0, z0 = self.state.step, len(self.refine_events), len(self.reset_steps)
+            hist = fn(self, n, **kw)
+            torch.cuda.synchronize()
+            rec["train"].append(dict(steps=self.state.step - s0, launches=launch_delta(before),
+                                     loop_stats=dict(self.loop_stats)))
+            rec["refines"] += [e["step"] for e in self.refine_events[r0:]]
+            rec["resets"] += self.reset_steps[z0:]
+            return hist
+        return call
+
+    def evaluate(fn):
+        def call(params, aux, cfg, batches, **kw):
+            before = dict(cuda_build.LAUNCHES)
+            n_isect = []
+
+            def render(render_fn):
+                def call_view(*a, **k):
+                    out = render_fn(*a, **k)
+                    n_isect.append(out["n_intersections"])
+                    return out
+                return call_view
+
+            with wrapped(pipeline_mod, "render_view", render):
+                result = fn(params, aux, cfg, batches, **kw)
+            torch.cuda.synchronize()
+            rec["evals"].append(dict(cfg=cfg, launches=launch_delta(before),
+                                     n_intersections=[int(n) for n in n_isect]))
+            return result
+        return call
+
+    return [(campaign, "make_synthetic_scene", gt), (Trainer, "_set_resolution_stage", stage),
+            (Trainer, "step", step), (Trainer, "train", train),
+            (campaign, "evaluate_scene", evaluate)]
+
+
+def campaign_schedule(cargs):
+    """The refine and opacity-reset steps of `Trainer.train`'s schedule for
+    the campaign's preset, computed from its ControlConfig."""
+    cc = configs.method_config("mtgs", max_steps=cargs.steps).control
+    refines, resets = [], []
+    for s in range(1, cargs.steps + 1):
+        if s > cc.densify_from_iter and s % cc.refine_every == 0:
+            if s < cc.stop_split_at or cc.continue_cull_post_densification:
+                refines.append(s)
+            interval = cc.reset_alpha_every * cc.refine_every
+            if s < cc.stop_split_at and s % interval == cc.refine_every:
+                resets.append(s)
+    return refines, resets
+
+
+def grown_base(base: int, growth: list, step: int) -> int:
+    """The ladder's base intersection buffer at `step`: `base` grown by
+    isect_grow_factor at each max_intersections growth up to that step."""
+    factor = configs.mtgs_config().isect_grow_factor
+    for e in growth:
+        if e["node"] == "max_intersections" and e["step"] <= step:
+            base = int(base * factor)
+    return base
+
+
+def phase_campaign(card: str, dev):
+    """`tools/campaign.py::main` in-process on the card: the JAX campaign's
+    scene at full width (960x540, 600k ground-truth gaussians, 100k seeds, a
+    5k instance, a 100k skybox, 3 traversals x 8 frames, max_intersections
+    2^21, ground truth at 6 << 20) for CAMPAIGN_STEPS steps with a
+    checkpoint every CAMPAIGN_SAVE_EVERY and main's own teardown and
+    resume at the half. The launch counters are zeroed just before main
+    and read just after; the parts are read around main's own calls
+    (`campaign_recorders`). Then a trainer is rebuilt from --out as a
+    crash-resume does, and evaluated; the untrained seed scene is
+    evaluated; one full-resolution view and one gradient step of the final
+    scene are held against the plain path. Returns (results, the kernel
+    wrappers' arguments in that gradient step, the run's launches, the
+    rebuilt trainer)."""
+    out = ROOT / "build" / "chip_smoke" / "campaign"
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["--out", str(out), "--steps", str(CAMPAIGN_STEPS),
+            "--save-every", str(CAMPAIGN_SAVE_EVERY)]
+    cargs = campaign.parse_args(argv)
+    rec = dict(gt=[], stages=[], steps=[], train=[], refines=[], resets=[], evals=[])
+    printed = io.StringIO()
+    log(f"# campaign ({card}): campaign.main({' '.join(argv)})")
+    try:
+        with contextlib.ExitStack() as stack:
+            for owner, name, wrap in campaign_recorders(rec):
+                stack.enter_context(wrapped(owner, name, wrap))
+            torch.cuda.synchronize()
+            # the campaign path: kernel launches counted from here ...
+            cuda_build.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                rc = campaign.main(argv)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = dict(cuda_build.LAUNCHES)
+            # ... to here
+        return campaign_checks(cargs, out, rec, rc, printed.getvalue(), wall_s, launches,
+                               card, dev)
+    finally:
+        # the scene cache and the checkpoints are hundreds of MB: keep only
+        # the logs, the JSON results and the previews
+        for p in [out / "scene_cache.npz", *out.glob("step-*"), *out.glob("final-step-*")]:
+            if p.is_dir():
+                shutil.rmtree(p, ignore_errors=True)
+            else:
+                p.unlink(missing_ok=True)
+
+
+def campaign_checks(cargs, out: Path, rec: dict, rc, printed: str, wall_s: float,
+                    launches: dict, card: str, dev):
+    """The checks of phase 10 on what `campaign.main` left in `out` and what
+    `campaign_recorders` recorded (phase_campaign)."""
+    line = json.loads(printed.strip().splitlines()[-1])
+    require(rc == 0 and "value" in line, f"campaign.main returned {rc}, printed {printed!r}")
+    summary = json.loads((out / "campaign_summary.json").read_text())
+    result = json.loads((out / "eval_result.json").read_text())
+    meta = json.loads((out / "resume_meta.json").read_text())
+    steps = cargs.steps
+    seen, _, train_pairs, eval_pairs = campaign.splits(cargs.n_travels, cargs.n_frames)
+    modes = campaign.travel_modes_for(cargs.n_travels)
+
+    # launches of each part: the ground truth takes the path fused_fits picks
+    require(len(rec["gt"]) == 1, f"{len(rec['gt'])} ground-truth builds")
+    gt = rec["gt"][0]
+    tiles = -(-cargs.width // 32) * -(-cargs.height // 32)
+    gt_fused = fused_fits(gt["max_intersections"], tiles, gt["n_gaussians"])
+    v = gt["views"]
+    require(v == cargs.n_travels * cargs.n_frames, f"{v} ground-truth views")
+    require_launches(gt["launches"], dict(expand_fused=v, blend_forward=v) if gt_fused else
+                     dict(expand_pairs=v, rows_to_attr_major=v, blend_forward=v),
+                     f"the {v} ground-truth renders")
+    train_l = {k: sum(t["launches"][k] for t in rec["train"]) for k in KERNELS}
+    n_steps = sum(t["steps"] for t in rec["train"])
+    require(n_steps == steps == len(rec["steps"]), f"{n_steps} steps trained, "
+            f"{len(rec['steps'])} recorded, {steps} asked")
+    n_classic = train_l["expand_pairs"]
+    require_launches(train_l, dict(
+        blend_backward=steps, dense_segment_sum=steps, blend_forward=steps,
+        expand_fused=steps - n_classic, expand_pairs=n_classic,
+        rows_to_attr_major=n_classic, attr_major_to_rows=n_classic), f"{steps} training steps")
+    require(len(rec["evals"]) == 1, f"{len(rec['evals'])} evals")
+    ev = rec["evals"][0]
+    n_ev = len(eval_pairs)
+    ev_classic = ev["launches"]["expand_pairs"]
+    require_launches(ev["launches"], dict(
+        blend_forward=n_ev, expand_fused=n_ev - ev_classic, expand_pairs=ev_classic,
+        rows_to_attr_major=ev_classic), f"the eval over {n_ev} views")
+    require(all(n <= ev["cfg"].max_intersections for n in ev["n_intersections"]),
+            f"eval truncated: {ev['n_intersections']} > {ev['cfg'].max_intersections}")
+    previews = 2  # main's two preview renders
+    require(launches["blend_forward"] == v + steps + n_ev + previews
+            and launches["blend_backward"] == steps,
+            f"launches over main {launches} are not the parts' sum")
+
+    # the schedule, computed from the preset, against what ran
+    refines, resets = campaign_schedule(cargs)
+    resume_at = (steps // 2 // cargs.save_every) * cargs.save_every
+    stages = campaign._stages_for(steps)
+    require(rec["refines"] == refines and rec["resets"] == resets,
+            f"refines {rec['refines']} / resets {rec['resets']}: the schedule says "
+            f"{refines} / {resets}")
+    scale_at = lambda s: [sc for start, sc in stages if s >= start][-1]
+    want_switch = [(start, sc) for start, sc in stages] + [(resume_at, scale_at(resume_at))]
+    require([(r["step"], r["scale"]) for r in rec["stages"]] == want_switch,
+            f"stage switches {rec['stages']}, expected {want_switch}")
+    growth = summary["growth_events"]
+    for r in rec["stages"]:
+        k = int(round(1.0 / r["scale"]))
+        base = grown_base(cargs.max_isect, growth, r["step"])
+        isect = ((max(int(base * r["scale"] ** 2), 1 << 14) + 511) // 512) * 512
+        require((r["width"], r["height"], r["base"], r["max_intersections"])
+                == (cargs.width // k, cargs.height // k, base, isect),
+                f"stage {r}: expected {cargs.width // k}x{cargs.height // k}, base {base}, "
+                f"max_intersections {isect}")
+
+    # every step finite, none skipped, none truncated
+    per = {k: torch.stack([r[k].reshape(()).float() for r in rec["steps"]]).tolist()
+           for k in ("n", "loss", "skipped")}
+    limits = [r["limit"] for r in rec["steps"]]
+    require(all(np.isfinite(per["loss"])) and not any(per["skipped"]),
+            "a campaign step was non-finite or skipped")
+    over = [(i, n, lim) for i, (n, lim) in enumerate(zip(per["n"], limits)) if n > lim]
+    require(not over, f"campaign steps truncated (step, n_intersections, max): {over[:5]}")
+
+    # the resume: main's teardown ran, rotation kept two, the final checkpoint is stripped
+    require((out / "RESUME_DEMO_DONE").read_text() == str(resume_at) and summary["resume_demo"],
+            "the mid-run teardown and resume did not run")
+    kept = sorted(p.name for p in out.glob("step-*"))
+    require(len(kept) <= 2, f"rotating checkpoints kept: {kept}")
+    final = torch.load(checkpoint.payload_path(out / f"final-step-{steps:09d}"),
+                       map_location="cpu", weights_only=True)
+    require("opt_state" not in final and final["step"] == steps,
+            f"final checkpoint keys {sorted(final)}")
+    del final
+
+    # a crash-resume from --out: capacities padded, the scene restored, the eval repeated
+    scene = campaign._scene_cache_roundtrip(out / "scene_cache.npz", lambda: None)
+    eval_batches = [campaign.make_batch(scene, t, f, 1.0, dev) for t, f in eval_pairs]
+    rebuilt = campaign.build_trainer(cargs, scene, train_pairs, caps=meta["caps"],
+                                     base_max_isect=meta["base_max_intersections"])
+    require(campaign.try_resume(out, rebuilt) == steps, "the rebuilt trainer did not resume")
+    require(campaign.node_caps(rebuilt.state.params) == meta["caps"] == summary["caps"],
+            f"rebuilt capacities {campaign.node_caps(rebuilt.state.params)} vs {meta['caps']}")
+    again = evaluate_scene(rebuilt.state.params, rebuilt.aux, ev["cfg"], eval_batches,
+                           travel_modes=modes, device=dev)
+    diff = {k: abs(again[k] - result[k]) for k in result if k not in ("fps", "num_images")
+            and not (np.isnan(again[k]) and np.isnan(result[k]))}
+    require(max(diff.values()) <= CAMPAIGN_EVAL_TOL and again["num_images"] == n_ev,
+            f"the rebuilt trainer's eval differs from eval_result.json: {diff}")
+    keys = ("psnr", "cc_psnr", "ssim", "depth_RMSE", "depth_absRel", "depth_delta1")
+    missing = [p + k for k in keys for p in ["", *(f"trv{t}_" for t in range(cargs.n_travels))]
+               if not np.isfinite(result.get(p + k, np.nan))]
+    require(not missing, f"eval_result.json lacks {missing}")
+
+    # the untrained seed scene on the same views
+    seed_trainer = campaign.build_trainer(cargs, scene, train_pairs)
+    untrained = evaluate_scene(seed_trainer.state.params, seed_trainer.aux, ev["cfg"],
+                               eval_batches, travel_modes=modes, device=dev)
+    del seed_trainer
+    seen_psnr = float(np.mean([result[f"trv{t}_psnr"] for t in seen]))
+    seen_psnr0 = float(np.mean([untrained[f"trv{t}_psnr"] for t in seen]))
+    require(seen_psnr >= seen_psnr0 + CAMPAIGN_PSNR_GAIN,
+            f"seen-split psnr {seen_psnr:.3f} dB, untrained {seen_psnr0:.3f} dB: gained "
+            f"less than {CAMPAIGN_PSNR_GAIN} dB")
+
+    # the kernels on the trained scene: one full-resolution view and one step
+    (t, f), b = eval_pairs[0], eval_batches[0]
+    view = lambda: render_view(rebuilt.state.params, rebuilt.aux, ev["cfg"], b, 10**9,
+                               travel_mode=modes[t], device=dev)
+    got = view()
+    with plain_path():
+        want = view()
+    view_err = view_errors(got, want)
+    require_view_close(view_err, cargs.width * cargs.height, "campaign: trained-scene view")
+    view_err["depth_flip_causes"] = require_depth_flip_causes(
+        view, got, want, "campaign: trained-scene view")
+    del got, want
+    train_batch = campaign.make_batch(scene, *train_pairs[0], 1.0, dev)
+    grads = trained_scene_grads(rebuilt, ev["cfg"], train_batch)
+    captured = grads.pop("captured")
+
+    by_stage = {}
+    for r in rec["steps"]:
+        by_stage.setdefault(r["scale"], []).append(r["ms"])
+    loop = {k: sum(t["loop_stats"][k] for t in rec["train"])
+            for k in ("dispatch_s", "refine_s", "sync_s", "steps")}
+    res = dict(
+        card=card, argv=cargs.__dict__, wall_s=wall_s, gt=gt, gt_fused=gt_fused,
+        launches=launches, train_launches=train_l, eval_launches=ev["launches"],
+        eval_n_intersections=ev["n_intersections"],
+        stages=rec["stages"], refines=rec["refines"], resets=rec["resets"],
+        resume_at=resume_at, kept_checkpoints=kept,
+        ms_per_step_by_scale={str(s): float(np.median(v)) for s, v in by_stage.items()},
+        steps_by_scale={str(s): len(v) for s, v in by_stage.items()},
+        step_ms=[r["ms"] for r in rec["steps"]], n_intersections=per["n"],
+        max_intersections=limits, total_loss=per["loss"], loop_stats=loop,
+        train_calls=[dict(steps=t["steps"], loop_stats=t["loop_stats"]) for t in rec["train"]],
+        growth_events=growth, summary=summary, eval=result, eval_fps=result["fps"],
+        rebuilt_eval_max_diff=max(diff.values()), untrained_eval=untrained,
+        seen_psnr=seen_psnr, untrained_seen_psnr=seen_psnr0, view_errors=view_err,
+        grads=grads, campaign_line=line)
+    log(f"# campaign ({card}): {steps} steps in {wall_s:.1f} s (ground truth "
+        f"{gt['seconds']:.1f} s, {'fused' if gt_fused else 'classic'} path); ms/step by "
+        f"scale (median, host clock between synchronizes) {res['ms_per_step_by_scale']} "
+        f"over {res['steps_by_scale']} steps; loop_stats {loop}")
+    log(f"# campaign ({card}): stages {rec['stages']}; refines {rec['refines']}, resets "
+        f"{rec['resets']}, resume at {resume_at}; growth {growth}; alive "
+        f"{summary['seed_alive']} -> {summary['final_alive']}; caps {summary['caps']}")
+    log(f"# campaign ({card}): launches {launches} (training {train_l}, eval "
+        f"{ev['launches']}); step n_intersections max {max(per['n'])}")
+    log(f"# campaign ({card}): eval {json.dumps({k: round(x, 4) for k, x in result.items() if not k.startswith('trv')})}; "
+        f"seen psnr {seen_psnr:.3f} dB (untrained {seen_psnr0:.3f}); eval fps "
+        f"{result['fps']:.2f}; rebuilt eval max diff {res['rebuilt_eval_max_diff']:.3g}")
+    log(f"# campaign ({card}): trained-scene view vs plain {view_err}")
+    return res, captured, launches, rebuilt
+
+
+def trained_scene_grads(trainer, cfg, batch):
+    """One gradient step of a trained scene (at the trainer's step) on the
+    kernel path, held within GRAD_TOL (max-scaled, every leaf) of the same
+    step with every kernel but the forward blend swapped for its plain
+    version. The forward blend is held on its own at this step's inputs
+    (phase 5's `at_campaign` row) and in a view of the scene: with the
+    plain forward in the reference too, the comparison would be
+    ill-conditioned here, as the all-plain errors and `l1_sign_flips`
+    recorded beside it show. On a trained scene many pixels' residuals lie
+    within the two forwards' rounding (~1e-6), so the sign of the L1 terms
+    flips between them; each flip moves a colour gradient by about
+    w * 2 / (3 H W), against a largest colour gradient that training has
+    made small."""
+    captured = {}
+    no_fwd = {k: fn for k, fn in PLAIN.items() if k != "blend_forward"}
+    runs = {}
+    for name, ctx in (("kernel", capturing(captured)), ("plain_but_forward",
+                      kernels_replaced(no_fwd)), ("plain", plain_path())):
+        with ctx:
+            total, losses, out, sink, g = loss_and_grads(
+                trainer.state.params, trainer.aux, cfg, batch, trainer.state.step,
+                device=trainer.device)
+        torch.cuda.synchronize()
+        runs[name] = (dict(g, absgrad=sink, total=total.reshape(1)), out["rgb_appearance"])
+    ref, rgb_ref = runs["plain_but_forward"]
+    got, rgb = runs["kernel"]
+    errs = {k: max_scaled_err(got[k], w) for k, w in ref.items()}
+    require(all(np.isfinite(float(x.abs().max())) for x in got.values() if x.numel()),
+            "non-finite gradient on the trained scene")
+    bad = {k: e for k, e in errs.items() if not e <= GRAD_TOL}
+    require(not bad, f"trained-scene gradients differ from the plain path's (its forward "
+            f"blend the kernel's): {bad}")
+    plain, rgb_plain = runs["plain"]
+    all_plain = {k: max_scaled_err(got[k], w) for k, w in plain.items()}
+    gt = torch.as_tensor(batch.image, device=rgb.device)
+    flips = int((torch.sign(rgb - gt) != torch.sign(rgb_plain - gt)).sum())
+    res = dict(errors=errs, worst=max(errs, key=errs.get), max_err=max(errs.values()),
+               all_plain_errors=all_plain, all_plain_worst=max(all_plain, key=all_plain.get),
+               all_plain_max_err=max(all_plain.values()), l1_sign_flips=flips,
+               forward_rgb_max_diff=float((rgb - rgb_plain).abs().max()),
+               kernel_vs_reference_rgb_equal=bool(torch.equal(rgb, rgb_ref)),
+               captured=captured)
+    log(f"# campaign: trained-scene gradient step (step {trainer.state.step}), kernel path "
+        f"against plain but the forward blend (max-scaled, tol {GRAD_TOL}): worst "
+        f"{res['worst']} {res['max_err']:.3g}; against the all-plain path: worst "
+        f"{res['all_plain_worst']} {res['all_plain_max_err']:.3g}, forward rgb max diff "
+        f"{res['forward_rgb_max_diff']:.3g}, L1 residual signs flipped at {flips} of "
+        f"{rgb.numel()} pixel channels")
+    return res
+
+
 def row_errors(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
     """Each row's max |error| over its largest |value| (the error itself
     for an all-zero row)."""
@@ -1329,7 +1741,7 @@ def backward_timing(a, kw):
 
 @torch.no_grad()
 def phase_kernels(by_path, captured, train_captured, faint_captured, render_captured,
-                  growth_captured, growth_fused_captured, dev):
+                  growth_captured, growth_fused_captured, campaign_captured, dev):
     """Each kernel against its plain version: the fused forward two at one
     serving view's shapes (`captured`; the blend forward also at a faint
     step's and a grown training step's, the expansion also at a fused step
@@ -1337,8 +1749,9 @@ def phase_kernels(by_path, captured, train_captured, faint_captured, render_capt
     step's (the blend backward also at a faint step's, and twice there for
     equal bits; the segment sum also at a grown step's, and twice at each
     for equal bits), the classic three (classic_kernel_rows) at a
-    1920x1080 frame's and a grown training step's. by_path: {path: launch
-    counts of that path's run}."""
+    1920x1080 frame's and a grown training step's; both blends also at a
+    full-resolution step of phase 10's trained scene (`at_campaign`).
+    by_path: {path: launch counts of that path's run}."""
     launches = {k: sum(c[k] for c in by_path.values()) for k in KERNELS}
     kernels = []
 
@@ -1361,6 +1774,8 @@ def phase_kernels(by_path, captured, train_captured, faint_captured, render_capt
     faint, faint_got = forward_timing(*faint_captured["blend_forward"], plain_reps=3,
                                       term_flips=True)
     grown, _ = forward_timing(*growth_captured["blend_forward"], plain_reps=3, term_flips=True)
+    trained, _ = forward_timing(*campaign_captured["blend_forward"], plain_reps=3,
+                                term_flips=True)
     a, kw = faint_captured["blend_forward"]
     again = blend.blend_forward(*a, **kw)
     torch.cuda.synchronize()
@@ -1371,7 +1786,7 @@ def phase_kernels(by_path, captured, train_captured, faint_captured, render_capt
         replaces="mtgs_tpu/raster/blend_pallas.py:185",
         tpu_kernel="mtgs_tpu/raster/blend_pallas.py::blend_forward_pallas",
         launches=launches["blend_forward"], **serving, at_faint=faint, at_growth=grown,
-        repeat_bit_equal=True, library_ms=None,
+        at_campaign=trained, repeat_bit_equal=True, library_ms=None,
         library_note="no single PyTorch call computes a depth-ordered alpha blend"))
 
     # blend_backward: the replay of one training step's blend, at the bright
@@ -1379,6 +1794,7 @@ def phase_kernels(by_path, captured, train_captured, faint_captured, render_capt
     # opacity reset (one more step of the phase-6 trainer)
     bright, _ = backward_timing(*train_captured["blend_backward"])
     faint, faint_got = backward_timing(*faint_captured["blend_backward"])
+    trained, _ = backward_timing(*campaign_captured["blend_backward"])
     a, kw = faint_captured["blend_backward"]
     again = blend.blend_backward(*a, **kw)
     torch.cuda.synchronize()
@@ -1389,7 +1805,7 @@ def phase_kernels(by_path, captured, train_captured, faint_captured, render_capt
         replaces="mtgs_tpu/raster/blend_pallas.py:462",
         tpu_kernel="mtgs_tpu/raster/blend_pallas.py::blend_backward_pallas",
         launches=launches["blend_backward"], tol=dict(max_scaled=GRAD_TOL), **bright,
-        at_faint=faint, repeat_bit_equal=True, library_ms=None,
+        at_faint=faint, at_campaign=trained, repeat_bit_equal=True, library_ms=None,
         library_note="none: no PyTorch call computes the gradient of a depth-ordered blend"))
 
     # dense_segment_sum: one training step's slot rows to per-gaussian sums,
@@ -1408,7 +1824,8 @@ def phase_kernels(by_path, captured, train_captured, faint_captured, render_capt
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
         k["kernel_ms"] = k["ms"]
         for label, row in [("kernel " + k["name"], k)] + [
-                ("  " + at, k[at]) for at in ("at_faint", "at_growth", "at_training") if at in k]:
+                ("  " + at, k[at]) for at in ("at_faint", "at_growth", "at_training",
+                                              "at_campaign") if at in k]:
             log(f"# {label}: {row['device_ms']:.4f} ms on the device, {row['ms']:.4f} ms "
                 f"with the wrapper (plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} "
                 f"ms by {row['bound_by']}), max err {row['max_abs_err']:.3g}")
@@ -1708,14 +2125,18 @@ def main(argv=None):
         render_view(*frame_a, **frame_kw)
     growth_trainer, growth_res, growth_captured, growth_fused_captured, growth_launches = \
         phase_growth(args, dev)
+    campaign_res, campaign_captured, campaign_launches, campaign_trainer = \
+        phase_campaign(card, dev)
     by_path = dict(serving=main_res["launches"], training=train_res["launches"],
                    classic_renders=classic_launches, classic_step=classic_step_launches,
-                   render_tool=render_res["launches"], growth=growth_launches)
+                   render_tool=render_res["launches"], growth=growth_launches,
+                   campaign=campaign_launches)
     serving_captured = {}  # the kernel wrappers' arguments in one serving view
     with capturing(serving_captured), torch.no_grad():
         render_view(params, aux, cfg, batch, 10**9, device=dev)
     kernels = phase_kernels(by_path, serving_captured, train_captured, faint_captured,
-                            render_captured, growth_captured, growth_fused_captured, dev)
+                            render_captured, growth_captured, growth_fused_captured,
+                            campaign_captured, dev)
     ab = phase_ab(args.ab, serving_captured, train_captured, faint_captured, render_captured,
                   growth_captured, capture_faint_step(growth_trainer),
                   growth_fused_captured) if args.ab else None
@@ -1729,13 +2150,17 @@ def main(argv=None):
                 f"one {RENDER_SIZE[0]}x{RENDER_SIZE[1]} classic frame",
                 lambda: render_view(*frame_a, **frame_kw)),
             classic_train_step=phase_profile("one classic training step",
-                                             lambda: growth_trainer.train(1)))
+                                             lambda: growth_trainer.train(1)),
+            campaign_step=phase_profile(
+                "one full-resolution training step of the campaign's final scene",
+                lambda: campaign_trainer.train(1)))
 
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         summary = dict(card=card, build_seconds=build_s, goldens=goldens, main=main_res,
                        train=train_res, classic=classic_res, render_tool=render_res,
-                       growth=growth_res, kernels=kernels, ab=ab, profile=prof,
+                       growth=growth_res, campaign=campaign_res, kernels=kernels, ab=ab,
+                       profile=prof,
                        seconds=time.perf_counter() - t_start)
         (args.out / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
-"""Method presets; port of `mtgs_tpu/configs.py::mtgs_config` and
-`optimizer_table`."""
+"""Method presets; port of `mtgs_tpu/configs.py::mtgs_config`,
+`optimizer_table`, `METHODS` and `method_config`. The port runs the `mtgs`
+method; the 3DGS, deformable and WildGaussians presets are not ported yet."""
 
 from __future__ import annotations
 
@@ -69,3 +70,14 @@ def mtgs_config(width: int = 960, height: int = 540, max_steps: int = ITERS) -> 
 def optimizer_table(max_steps: int = ITERS) -> OptimConfig:
     """The per-group optimizer table (`mtgs/config/MTGS.py:121-187`)."""
     return OptimConfig(groups=default_groups(max_steps))
+
+
+METHODS = {"mtgs": mtgs_config}
+
+
+def method_config(name: str, **kwargs) -> TrainerConfig:
+    """The preset of a method by name, with its factory's keyword
+    arguments (width, height, max_steps)."""
+    if name not in METHODS:
+        raise KeyError(f"unknown method {name!r}; have {sorted(METHODS)}")
+    return METHODS[name](**kwargs)

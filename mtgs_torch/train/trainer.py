@@ -10,15 +10,20 @@
   device tensors.
 * `Trainer` — the host loop: steps, and on the JAX package's schedule the
   refine pass (node capacity grown to the counted candidates) and the
-  opacity reset, with `max_intersections` grown past `isect_grow_frac`.
+  opacity reset, with `max_intersections` grown past `isect_grow_frac`;
+  optionally the multi-resolution ladder (`resolution_stages` with a
+  `data_factory`), which switches the render size, the intersection
+  buffer and the data at each stage boundary.
 
-The JAX package's re-jit, speculative compile, resolution ladder, mesh
-and deformable machinery has no counterpart: torch keeps shapes dynamic.
+Nothing is re-jitted at a stage switch or a capacity growth: torch keeps
+shapes dynamic, so the JAX package's re-jit and speculative compile have
+no counterpart; its mesh and deformable machinery is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional
 
@@ -363,13 +368,31 @@ class Trainer:
     """Host-side control loop (ref `CustomTrainer.train`)."""
 
     def __init__(self, cfg: TrainerConfig, params: SceneParams, aux: SceneAux,
-                 data: Iterator[Batch], optim_config: Optional[OptimConfig] = None,
-                 seed: int = 0, device="cuda"):
+                 data: Optional[Iterator[Batch]] = None,
+                 optim_config: Optional[OptimConfig] = None, seed: int = 0, device="cuda",
+                 data_factory=None, resolution_stages=None):
+        """`resolution_stages` enables the multi-resolution training ladder
+        (ref `custom_datamanager.py:143-152`): (start_step, scale) pairs; at
+        each stage boundary `data_factory(scale)` supplies the stage's batch
+        iterator and the render size and intersection buffer follow it
+        (`_set_resolution_stage`)."""
         self.device = resolve_device(device)
         _check_scene_device(params, self.device)
         self.cfg = cfg
         self.aux = aux
         self.data = data
+        # the full-resolution config the stages scale (its intersection
+        # buffer grows with the stage's)
+        self._base_cfg = cfg
+        self._data_factory = data_factory
+        self.resolution_stages = sorted(resolution_stages) if resolution_stages else None
+        if self.resolution_stages is not None and data_factory is None:
+            raise ValueError("resolution_stages requires data_factory")
+        if data is None and self.resolution_stages is None:
+            raise ValueError("need `data` unless resolution_stages is set")
+        self._cur_scale = None
+        self._pending_batch = None
+        self.loop_stats = dict(dispatch_s=0.0, refine_s=0.0, sync_s=0.0, steps=0)
         self.optim_config = optim_config or OptimConfig(groups=default_groups(cfg.max_steps))
         self.state = init_train_state(params)
         # the split/dup noise of refine passes
@@ -513,15 +536,49 @@ class Trainer:
         return train_step(self.state, self.aux, self.cfg, batch, self.optim_config,
                           device=self.device)
 
+    def _set_resolution_stage(self, scale: float) -> None:
+        """Switch to a ladder stage: the stage's data iterator, its render
+        size taken from its first batch (kept as the next one to train
+        on), and the base intersection buffer scaled by scale^2 (at least
+        2^14, rounded up to 512)."""
+        base = self._base_cfg
+        self.data = self._data_factory(scale)
+        first = next(self.data)
+        h, w = first.image.shape[:2]
+        self._pending_batch = first
+        isect = max(int(base.max_intersections * scale * scale), 1 << 14)
+        isect = ((isect + 511) // 512) * 512
+        self.cfg = base.replace(width=w, height=h, max_intersections=isect)
+        self._cur_scale = scale
+
     def train(self, num_steps: int, log_every: int = 100, callback=None):
         """Run `num_steps` steps; refine and reset on the reference's
-        schedule. Returns the per-step metrics (device tensors)."""
+        schedule, switching ladder stages at their start steps. Returns the
+        per-step metrics (device tensors). `loop_stats` holds this call's
+        host seconds of step dispatch, refine (with its syncs) and the
+        callback's metric syncs, and its step count."""
         cc = self.cfg.control
         history = []
+        self.loop_stats = dict(dispatch_s=0.0, refine_s=0.0, sync_s=0.0, steps=0)
         for i in range(num_steps):
             step = self.state.step
-            metrics = self.step(next(self.data))
+            if self.resolution_stages is not None:
+                scale = self.resolution_stages[0][1]
+                for start, s in self.resolution_stages:
+                    if step >= start:
+                        scale = s
+                if scale != self._cur_scale:
+                    self._set_resolution_stage(scale)
+            if self._pending_batch is not None:
+                batch, self._pending_batch = self._pending_batch, None
+            else:
+                batch = next(self.data)
+            t0 = time.perf_counter()
+            metrics = self.step(batch)
+            self.loop_stats["dispatch_s"] += time.perf_counter() - t0
+            self.loop_stats["steps"] += 1
             sref = step + 1
+            t0 = time.perf_counter()
             if sref > cc.densify_from_iter and sref % cc.refine_every == 0:
                 do_densify = sref < cc.stop_split_at
                 do_cull_big = sref > cc.refine_every * cc.reset_alpha_every
@@ -542,11 +599,18 @@ class Trainer:
                             step=sref, node="max_intersections",
                             old=self.cfg.max_intersections, new=new))
                         self.cfg = self.cfg.replace(max_intersections=new)
+                        # later ladder stages start from the grown buffer
+                        self._base_cfg = self._base_cfg.replace(max_intersections=int(
+                            self._base_cfg.max_intersections * self.cfg.isect_grow_factor))
                 reset_interval = cc.reset_alpha_every * cc.refine_every
                 if sref < cc.stop_split_at and sref % reset_interval == cc.refine_every:
                     self.reset_opacities()
                     self.reset_steps.append(sref)
+            self.loop_stats["refine_s"] += time.perf_counter() - t0
             if callback is not None and (step % log_every == 0 or i == num_steps - 1):
-                callback(step, {k: float(v) for k, v in metrics.items()})
+                t0 = time.perf_counter()
+                values = {k: float(v) for k, v in metrics.items()}
+                self.loop_stats["sync_s"] += time.perf_counter() - t0
+                callback(step, values)
             history.append(metrics)
         return history

@@ -18,7 +18,8 @@ from mtgs_torch.eval import pipeline
 from mtgs_torch.models.appearance import init_exposure
 from mtgs_torch.models.gaussians import init_node_from_points, init_skybox_node
 from mtgs_torch.models.scene_graph import init_scene
-from mtgs_torch.tools import render
+from mtgs_torch.data import synthetic
+from mtgs_torch.tools import campaign, render
 from mtgs_torch.train import trainer
 
 PKG = Path(mtgs_torch.__file__).parent
@@ -33,6 +34,8 @@ def test_importing_the_port_loads_no_jax():
     mods = all_modules()
     assert "mtgs_torch.eval.pipeline" in mods and "mtgs_torch.raster.blend" in mods
     assert "mtgs_torch.tools.render" in mods and "mtgs_torch.raster.expand_pairs" in mods
+    assert {"mtgs_torch.data.synthetic", "mtgs_torch.train.checkpoint",
+            "mtgs_torch.tools.campaign"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -146,3 +149,34 @@ def test_forward_only_and_precision_pins():
     assert not out["rgb"].requires_grad and not out["depth"].requires_grad
     out = trainer.render_view(params, aux, cfg, _batch(), 0, training=True, device="cpu")
     assert out["rgb"].requires_grad and out["depth"].requires_grad
+
+
+def test_campaign_entry_points_raise_without_a_card(no_card, tmp_path):
+    """The synthetic scene, its model, the ladder Trainer and the campaign
+    default to the card and raise without one (the campaign before it
+    writes anything); asked for, the CPU runs."""
+    kw = dict(width=32, height=16, n_travels=1, n_frames=1, n_bg=50, n_instance=8,
+              gt_max_intersections=1 << 12)
+    with pytest.raises(RuntimeError, match="cuda"):
+        synthetic.make_synthetic_scene(**kw)
+    scene = synthetic.make_synthetic_scene(device="cpu", **kw)
+    with pytest.raises(RuntimeError, match="cuda"):
+        synthetic.build_scene_model(scene)
+    with pytest.raises(RuntimeError, match="cuda"):
+        synthetic.batch_iterator(scene)
+    params, aux = synthetic.build_scene_model(scene, device="cpu")
+    assert params.background.means.device.type == "cpu"
+    cfg = configs.method_config("mtgs", width=32, height=16).replace(
+        max_intersections=1 << 14)
+    stages = dict(data_factory=lambda s: synthetic.batch_iterator(scene, device="cpu"),
+                  resolution_stages=[(0, 1.0)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        trainer.Trainer(cfg, params, aux, **stages)
+    assert trainer.Trainer(cfg, params, aux, device="cpu", **stages).train(1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        campaign.main(["--out", str(tmp_path / "run"), "--steps", "2"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        campaign.make_batch(scene, 0, 0, 1.0)
+    assert not (tmp_path / "run").exists()
+    with pytest.raises(KeyError, match="mtgs"):
+        configs.method_config("3dgs")
