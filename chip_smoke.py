@@ -8,15 +8,17 @@ made from `--seed`: serving (`scene_from_state_dict` -> `evaluate_scene`
 -> `render_view` -> `rasterize`), training (`Trainer.train` ->
 `train_step` -> `loss_and_grads` -> the differentiable `rasterize`), the
 render tool at nuPlan's 1920x1080 (`tools.render.render_camera_path`),
-training across the capacity growth that leaves the fused path and the
-training campaign (`tools.campaign.main`); and holds
+training across the capacity growth that leaves the fused path, the
+training campaign (`tools.campaign.main`) and a nuPlan road block through
+`tools.train_scene.main` with the port's own JPEG and PNG decoders; and holds
 the seven hand-written CUDA kernels (`csrc/expand_fused.cu`,
 `csrc/blend_forward.cu`, `csrc/blend_backward.cu`, `csrc/segment_sum.cu`,
 `csrc/expand_pairs.cu`, the two of `csrc/transpose.cu`) against their
 plain PyTorch versions. Phases, each of which raises on failure:
 
   1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA;
-  2. build: the six kernel sources compiled with nvcc for sm_90a, in
+  2. build: the six kernel sources compiled with nvcc for sm_90a and the
+     image decoders (`csrc/image_decode.cc`) with the host compiler, in
      parallel;
   3. goldens: the kernel path's rasterize on the four gsplat-math goldens
      in tests/goldens/ (render 2e-3, alpha 1e-3);
@@ -86,6 +88,24 @@ plain PyTorch versions. Phases, each of which raises on failure:
      trained scene against the plain path with phase 4's tolerances, and
      one gradient step against the plain path with the kernel forward
      blend on both sides (GRAD_TOL; `trained_scene_grads` says why);
+  11. nuPlan: `tools/train_scene.py::main` in-process on the committed road
+     block (tests/fixtures/nuplan_block: 3 traversals x 4 frames of
+     1920x1080 JPEGs through a distorting camera; the seed cloud, LiDAR,
+     poses and boxes written at run time from the seed by
+     tests/make_nuplan_fixture.py): the port's decoders against PIL's
+     manifest (block means within 1/255, SHA-256 equality reported) with
+     the host's ms per decode, per `load_sample` and for `SampleCache`'s
+     prefetch; the untrained model's eval on traversal 2 (unseen);
+     NUPLAN_STEPS steps of the `mtgs` preset at 960x540 with a checkpoint
+     every NUPLAN_SAVE_EVERY, the launch counters zeroed just before and
+     read just after: the four fused kernels once per step, the two forward
+     kernels once per eval view; `main --resume` in a folder holding only
+     the step-100 checkpoint, launching for the steps left; the eval psnr
+     NUPLAN_PSNR_GAIN dB above the untrained; `eval_setup` + `evaluate_scene`
+     repeating eval_result.json within 1e-6; `render_interpolated` of
+     traversal 0 at 1920x1080 (10 frames, classic path: kernels 1, 5, 6
+     once per frame), its middle frame against the plain path with phase
+     4's tolerances and flip causes;
   5. kernels: each kernel against its plain version, the fused forward two
      at the shapes of one serving view, the backward two at those of one
      training step (both blends also on the faint scene of one more
@@ -120,19 +140,25 @@ import ctypes
 import dataclasses
 import hashlib
 import importlib
+import importlib.util
 import io
 import itertools
 import json
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from mtgs_torch import configs
+from mtgs_torch.data import image_io, loader as data_loader
+from mtgs_torch.data.dataset import SampleConfig, load_sample, undistort_image
+from mtgs_torch.data.nuplan import parse_scene
 from mtgs_torch.eval.metrics import masked_psnr
 from mtgs_torch.eval.pipeline import EvalConfig, evaluate_scene
 from mtgs_torch.models.convert import scene_from_state_dict
@@ -145,7 +171,7 @@ from mtgs_torch.raster.chunk_math import (
     ALPHA_MAX, ALPHA_MIN, LOG_T_EPS, NUM_GEOM, conic_coefficients, pixel_features, round8,
 )
 from mtgs_torch.raster.expand_fused import fused_fits
-from mtgs_torch.tools import campaign
+from mtgs_torch.tools import campaign, train_scene
 from mtgs_torch.tools import render as render_tool
 from mtgs_torch.train import checkpoint
 from mtgs_torch.train.trainer import Batch, Trainer, loss_and_grads, render_view
@@ -191,6 +217,13 @@ CAMPAIGN_STEPS = 600    # phase 10: refines at 100 and 200, a reset at 100, resu
 CAMPAIGN_SAVE_EVERY = 150
 CAMPAIGN_PSNR_GAIN = 2.0  # dB: the trained seen split over the untrained seed scene's
 CAMPAIGN_EVAL_TOL = 1e-6  # a rebuilt trainer's eval against eval_result.json
+NUPLAN_SIZE = (960, 540)  # phase 11: the training size (the JPEGs' 1920x1080 at scale 0.5)
+NUPLAN_STEPS = 200       # phase 11: train_scene.main on the committed road block
+NUPLAN_SAVE_EVERY = 100  # the resume starts from the step-100 checkpoint
+NUPLAN_PSNR_GAIN = 1.0   # dB: the trained eval over the untrained build's
+NUPLAN_EVAL_TOL = 1e-6   # eval_setup + evaluate_scene against eval_result.json
+NUPLAN_MEANS_TOL = 1 / 255  # the JPEGs' 1/32-scale block means against the manifest's (PIL)
+INTERP_HZ = 6.0          # render_interpolated: 4 frames at 2 Hz become 10
 # the training start: the scene's alive rows jittered by these standard deviations
 JITTER = dict(means=0.05, features_dc=0.3, opacities=0.5)
 
@@ -635,10 +668,16 @@ def phase_card():
 
 
 def phase_build():
+    """The six kernel sources (one nvcc each) and the image decoders (the
+    host compiler), all at once."""
     t0 = time.perf_counter()
-    libs = cuda_build.build()
+    with ThreadPoolExecutor(1) as ex:
+        decoders = ex.submit(image_io.build)
+        libs = cuda_build.build()
+        decoder_lib = decoders.result()
     secs = time.perf_counter() - t0
-    log(f"# build: {', '.join(p.name for p in libs.values())} in {secs:.1f} s")
+    log(f"# build: {', '.join(p.name for p in libs.values())}, {decoder_lib.name} in "
+        f"{secs:.1f} s")
     return secs
 
 
@@ -1514,6 +1553,303 @@ def campaign_checks(cargs, out: Path, rec: dict, rc, printed: str, wall_s: float
     return res, captured, launches, rebuilt
 
 
+def nuplan_fixture():
+    """tests/make_nuplan_fixture.py, the road block's generator (numpy only
+    for what phase 11 calls)."""
+    spec = importlib.util.spec_from_file_location(
+        "make_nuplan_fixture", ROOT / "tests" / "make_nuplan_fixture.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # its dataclass resolves annotations through it
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def nuplan_decoders(fx, root: Path, records) -> dict:
+    """The port's decoders on the committed JPEGs against the manifest of
+    PIL's decodes (block means within NUPLAN_MEANS_TOL; whether the SHA-256
+    matches, i.e. bit-equal to PIL), and host times on this machine: a
+    1920x1080 decode, a `load_sample` (decode, undistort, resize to
+    960x540, masks and depth), and `SampleCache`'s prefetch of the training
+    records."""
+    manifest = json.loads((root / "manifest.json").read_text())
+    decode_ms, sha_equal, worst = [], 0, 0.0
+    for rel, entry in sorted(manifest["images"].items()):
+        t0 = time.perf_counter()
+        img = image_io.read_image(root / rel)
+        decode_ms.append(1e3 * (time.perf_counter() - t0))
+        require(img.shape == (manifest["height"], manifest["width"], 3), f"{rel}: {img.shape}")
+        err = float(np.abs(fx.block_means(img) - np.asarray(entry["block_means"])).max())
+        require(err <= NUPLAN_MEANS_TOL, f"{rel}: block means off PIL's by {err}")
+        worst = max(worst, err)
+        sha_equal += hashlib.sha256(img.tobytes()).hexdigest() == entry["sha256"]
+    cfg = SampleConfig(scale_factor=0.5)
+    sample_ms = []
+    for rec in records[:4]:
+        t0 = time.perf_counter()
+        s = load_sample(rec, cfg)
+        sample_ms.append(1e3 * (time.perf_counter() - t0))
+        require(s["image"].shape == (NUPLAN_SIZE[1], NUPLAN_SIZE[0], 3),
+                f"load_sample: {s['image'].shape}")
+    # the parts of one sample (the undistortion map is cached by now)
+    img = image_io.read_image(records[0].image_path).astype(np.float32) / 255.0
+    t0 = time.perf_counter()
+    und, _, _ = undistort_image(img, records[0].intrinsic, records[0].distortion, cfg.undistort)
+    undistort_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    image_io.resize(und, cfg.scale_factor)
+    resize_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    cache = data_loader.SampleCache(records, cfg, strategy="prefetch", num_workers=4)
+    cache._pool.shutdown(wait=True)  # every prefetch done
+    prefetch_s = time.perf_counter() - t0
+    require(len(cache._cache) == len(records), "SampleCache did not prefetch every record")
+    cache.close()
+    res = dict(jpegs=len(decode_ms), sha256_equal=sha_equal, block_means_max_err=worst,
+               decode_ms=decode_ms, decode_ms_median=float(np.median(decode_ms)),
+               load_sample_ms=sample_ms, load_sample_ms_median=float(np.median(sample_ms)),
+               undistort_rgb_ms=undistort_ms, resize_rgb_ms=resize_ms,
+               prefetch_records=len(records), prefetch_s=prefetch_s)
+    log(f"# nuplan decoders: {sha_equal}/{len(decode_ms)} JPEGs bit-equal to PIL (SHA-256), "
+        f"block means max err {worst:.2e}; 1920x1080 decode median {res['decode_ms_median']:.1f} "
+        f"ms; load_sample (to 960x540) median {res['load_sample_ms_median']:.1f} ms (of it the "
+        f"image's undistortion {undistort_ms:.1f}, its resize {resize_ms:.1f}); "
+        f"SampleCache prefetch of {len(records)} records with 4 threads {prefetch_s:.2f} s")
+    return res
+
+
+def nuplan_main(argv, rec: dict):
+    """`train_scene.main(argv)` in-process with the launch counters zeroed
+    just before and read just after, each `Trainer.step` timed between
+    synchronizes and the launches of the eval read around its own call.
+    Returns (printed text, launches, wall seconds)."""
+    def step(fn):
+        def call(self, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = fn(self, batch)
+            torch.cuda.synchronize()
+            rec["steps"].append(dict(ms=1e3 * (time.perf_counter() - t0),
+                                     n=int(m["n_intersections"]),
+                                     limit=self.cfg.max_intersections,
+                                     loss=float(m["total_loss"]),
+                                     skipped=float(m["nonfinite_grad_step"])))
+            return m
+        return call
+
+    def evaluate(fn):
+        def call(params, aux, cfg, batches, **kw):
+            before = dict(cuda_build.LAUNCHES)
+            batches = list(batches)
+            result = fn(params, aux, cfg, batches, **kw)
+            torch.cuda.synchronize()
+            rec["evals"].append(dict(views=len(batches), launches=launch_delta(before)))
+            return result
+        return call
+
+    printed = io.StringIO()
+    pipeline_eval = importlib.import_module("mtgs_torch.eval.pipeline")
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(wrapped(Trainer, "step", step))
+        stack.enter_context(wrapped(pipeline_eval, "evaluate_scene", evaluate))
+        torch.cuda.synchronize()
+        # the nuPlan path: kernel launches counted from here ...
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = train_scene.main(argv)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(cuda_build.LAUNCHES)
+        # ... to here
+    require(rc == 0, f"train_scene.main returned {rc}: {printed.getvalue()[-2000:]}")
+    return printed.getvalue(), launches, wall_s
+
+
+def require_nuplan_run(launches: dict, rec: dict, steps: int, what: str) -> None:
+    """A main run's launches: the four fused kernels once per training step
+    (none of the classic ones), both forward kernels once per eval view;
+    every step finite, none skipped or truncated."""
+    require(len(rec["steps"]) == steps, f"{what}: {len(rec['steps'])} steps, expected {steps}")
+    require(len(rec["evals"]) == 1, f"{what}: {len(rec['evals'])} evals")
+    views = rec["evals"][0]["views"]
+    require_launches(rec["evals"][0]["launches"], dict(expand_fused=views, blend_forward=views),
+                     f"{what}: the eval over {views} views")
+    require_launches(launches, dict(expand_fused=steps + views, blend_forward=steps + views,
+                                    blend_backward=steps, dense_segment_sum=steps),
+                     f"{what}: {steps} fused training steps and the eval")
+    bad = [(i, r) for i, r in enumerate(rec["steps"])
+           if not np.isfinite(r["loss"]) or r["skipped"] or r["n"] > r["limit"]]
+    require(not bad, f"{what}: non-finite, skipped or truncated steps {bad[:3]}")
+
+
+def phase_nuplan(card: str, dev):
+    """The nuPlan path through `tools/train_scene.py` at full width on the
+    committed road block (tests/fixtures/nuplan_block: 3 traversals x 4
+    frames of 1920x1080 JPEGs through a distorting camera, the rest written
+    from the seed): the decoders against PIL's manifest; the untrained
+    model's eval on the val split (traversal 2, unseen); `main` for
+    NUPLAN_STEPS steps of the `mtgs` preset at 960x540 (scale 0.5, the
+    JPEGs undistorted by `optimal_new_K`); `main --resume` in a fresh folder
+    holding only the step-100 checkpoint; the eval psnr NUPLAN_PSNR_GAIN
+    above the untrained one; `eval_setup` + `evaluate_scene` repeating
+    eval_result.json; `render_interpolated` of traversal 0 at 1920x1080
+    (classic path), one frame against the plain path. Returns (results,
+    the launches of the phase's runs)."""
+    fx = nuplan_fixture()
+    work = Path(tempfile.mkdtemp(prefix="nuplan_", dir=ROOT / "build"))
+    t0 = time.perf_counter()
+    try:
+        res, launches = _phase_nuplan(fx, work, card, dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"# nuplan ({card}): phase 11 took {res['phase_s']:.1f} s")
+    return res, launches
+
+
+def _phase_nuplan(fx, work: Path, card: str, dev):
+    t0 = time.perf_counter()
+    root = fx.materialize(work / "road_block")
+    setup_s = time.perf_counter() - t0
+    argv = ["--data", str(root), "--method", "mtgs", "--scale", "0.5",
+            "--width", str(NUPLAN_SIZE[0]), "--height", str(NUPLAN_SIZE[1]),
+            "--travels", "0", "1", "--eval-travels", "2",
+            "--steps", str(NUPLAN_STEPS), "--save-every", str(NUPLAN_SAVE_EVERY),
+            "--device", str(dev)]
+    t0 = time.perf_counter()
+    scene = parse_scene(root, split="train", train_travels=[0, 1], eval_travels=[2])
+    parse_s = time.perf_counter() - t0
+    require(len(scene.records) == 8 and scene.seed_xyz is not None and len(scene.instances) == 2,
+            f"parsed {len(scene.records)} records, {len(scene.instances)} instances")
+    decoders = nuplan_decoders(fx, root, scene.records)
+
+    # the untrained model on the eval split
+    cfg = configs.method_config("mtgs", width=NUPLAN_SIZE[0], height=NUPLAN_SIZE[1],
+                                max_steps=NUPLAN_STEPS)
+    params0, aux0 = train_scene.build_model_from_parsed(scene, cfg, SampleConfig(), device=dev)
+    ev = parse_scene(root, split="val", train_travels=[0, 1], eval_travels=[2],
+                     load_points=False)
+    cache = data_loader.SampleCache(ev.records, SampleConfig(scale_factor=0.5),
+                                    strategy="on_demand")
+    eval_batches = [data_loader.batch_from_sample(r, cache.get(i), device=dev)
+                    for i, r in enumerate(ev.records)]
+    before = dict(cuda_build.LAUNCHES)
+    untrained = evaluate_scene(params0, aux0, cfg, eval_batches, device=dev)
+    n_ev = len(eval_batches)
+    require_launches(launch_delta(before), dict(expand_fused=n_ev, blend_forward=n_ev),
+                     "the untrained eval")
+    n_gauss = sum(int(a.alive.sum()) for a in (aux0.background, aux0.skybox))
+    n_gauss += int(aux0.instances.alive.sum())
+    del params0, aux0
+
+    # train
+    out = work / "run"
+    rec = dict(steps=[], evals=[])
+    printed, launches, wall_s = nuplan_main(argv + ["--out", str(out)], rec)
+    require_nuplan_run(launches, rec, NUPLAN_STEPS, "train_scene.main")
+    result = json.loads((out / "eval_result.json").read_text())
+    kept = sorted(p.name for p in out.glob("step-*"))
+    require(kept == [f"step-{NUPLAN_SAVE_EVERY:09d}", f"step-{NUPLAN_STEPS:09d}"],
+            f"checkpoints kept: {kept}")
+    require(result["num_images"] == n_ev and result["psnr"] >= untrained["psnr"] + NUPLAN_PSNR_GAIN,
+            f"eval psnr {result['psnr']:.3f} dB against {untrained['psnr']:.3f} untrained: gained "
+            f"less than {NUPLAN_PSNR_GAIN} dB")
+
+    # resume from the step-100 checkpoint alone
+    fresh = work / "resumed"
+    fresh.mkdir()
+    shutil.copytree(out / f"step-{NUPLAN_SAVE_EVERY:09d}", fresh / f"step-{NUPLAN_SAVE_EVERY:09d}")
+    restored = checkpoint.checkpoint_layout(fresh / f"step-{NUPLAN_SAVE_EVERY:09d}")
+    require(restored["has_optimizer"], "the step-100 checkpoint has no optimizer state")
+    rrec = dict(steps=[], evals=[])
+    rprinted, rlaunches, rwall_s = nuplan_main(argv + ["--out", str(fresh), "--resume"], rrec)
+    resumed_steps = NUPLAN_STEPS - restored["step"]
+    want = f"resumed from step-{NUPLAN_SAVE_EVERY:09d} (step {restored['step']})"
+    require(want in rprinted, f"the resume printed no {want!r}: {rprinted[:2000]}")
+    require_nuplan_run(rlaunches, rrec, resumed_steps, "train_scene.main --resume")
+    resumed = json.loads((fresh / "eval_result.json").read_text())
+
+    # eval_setup repeats the run's eval
+    params, aux, rcfg, rscene, run_cfg = train_scene.eval_setup(out, device=dev)
+    again = evaluate_scene(params, aux, rcfg, eval_batches, device=dev)
+    diff = {k: abs(again[k] - result[k]) for k in result if k not in ("fps", "num_images")
+            and not (np.isnan(again[k]) and np.isnan(result[k]))}
+    require(max(diff.values()) <= NUPLAN_EVAL_TOL,
+            f"eval_setup's eval differs from eval_result.json: {diff}")
+
+    # render_interpolated at 1920x1080: the classic path
+    W, H = RENDER_SIZE
+    icfg = configs.mtgs_config(W, H).replace(max_intersections=RENDER_I)
+    calls = []
+    saved = render_tool.render_view
+
+    def timed_view(*a, **k):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        o = saved(*a, **k)
+        torch.cuda.synchronize()
+        calls.append(dict(args=(a, k), ms=1e3 * (time.perf_counter() - t1),
+                          out={n: o[n] for n in (*VIEW_TOL, "depth", "n_intersections")}))
+        return o
+
+    render_tool.render_view = timed_view
+    try:
+        cuda_build.reset_launches()  # render_interpolated's launches counted from here ...
+        t0 = time.perf_counter()
+        frames = render_tool.render_interpolated(
+            params, aux, icfg, rscene, 0, work / "frames", cameras=("CAM_F0",),
+            target_hz=INTERP_HZ, make_video=False, device=dev)
+        interp_s = time.perf_counter() - t0
+        ilaunches = dict(cuda_build.LAUNCHES)  # ... to here
+    finally:
+        render_tool.render_view = saved
+    n = len(frames)
+    require(n == len(calls) == 10, f"{n} frames written, {len(calls)} renders")
+    require_launches(ilaunches, dict(expand_pairs=n, rows_to_attr_major=n, blend_forward=n),
+                     "render_interpolated")
+    require(all(png_size(p) == (W, H) for p in frames), "frames of the wrong size")
+    require(all(int(c["out"]["n_intersections"]) <= RENDER_I for c in calls),
+            "render_interpolated truncated a frame")
+    c = calls[n // 2]
+    with plain_path():
+        want_view = saved(*c["args"][0], **c["args"][1])
+    frame_err = view_errors(c["out"], want_view)
+    require_view_close(frame_err, W * H, "render_interpolated: the middle frame")
+    frame_err["depth_flip_causes"] = require_depth_flip_causes(
+        lambda: saved(*c["args"][0], **c["args"][1]), c["out"], want_view,
+        "render_interpolated: the middle frame")
+    del want_view
+
+    total = {k: launches[k] + rlaunches[k] + ilaunches[k] for k in KERNELS}
+    step_ms = [r["ms"] for r in rec["steps"]]
+    res = dict(
+        card=card, setup_s=setup_s, parse_s=parse_s, n_gaussians=n_gauss, decoders=decoders,
+        untrained_eval=untrained, eval=result, resumed_eval=resumed,
+        eval_setup_max_diff=max(diff.values()), wall_s=wall_s, resumed_wall_s=rwall_s,
+        ms_per_step_median=float(np.median(step_ms[2:])), step_ms=step_ms,
+        resumed_ms_per_step_median=float(np.median([r["ms"] for r in rrec["steps"]][2:])),
+        n_intersections_max=max(r["n"] for r in rec["steps"]), launches=launches,
+        resumed_launches=rlaunches, resumed_from=restored["step"], resumed_steps=resumed_steps,
+        interp=dict(frames=n, seconds=interp_s, launches=ilaunches,
+                    ms_per_frame_median=float(np.median([c["ms"] for c in calls[1:]])),
+                    n_intersections=[int(c["out"]["n_intersections"]) for c in calls],
+                    middle_frame_vs_plain=frame_err),
+        total_launches=total, printed_tail=printed[-1500:])
+    log(f"# nuplan ({card}): road block written in {setup_s:.1f} s, parsed in {parse_s:.1f} s "
+        f"({len(scene.records)} records, {len(scene.seed_xyz)} seeds, {n_gauss} gaussians)")
+    log(f"# nuplan ({card}): main {NUPLAN_STEPS} steps in {wall_s:.1f} s, ms/step median "
+        f"{res['ms_per_step_median']:.2f} (host clock between synchronizes); launches "
+        f"{launches}; resumed from step {restored['step']}: {resumed_steps} steps in "
+        f"{rwall_s:.1f} s, launches {rlaunches}")
+    log(f"# nuplan ({card}): eval psnr {result['psnr']:.3f} dB (untrained "
+        f"{untrained['psnr']:.3f}, resumed run {resumed['psnr']:.3f}); ssim {result['ssim']:.4f}; "
+        f"eval_setup max diff {res['eval_setup_max_diff']:.3g}")
+    log(f"# nuplan ({card}): render_interpolated {n} frames at {W}x{H} in {interp_s:.2f} s, "
+        f"median {res['interp']['ms_per_frame_median']:.2f} ms/frame after the first; launches "
+        f"{ilaunches}; middle frame vs plain {frame_err}")
+    return res, total
+
+
 def trained_scene_grads(trainer, cfg, batch):
     """One gradient step of a trained scene (at the trainer's step) on the
     kernel path, held within GRAD_TOL (max-scaled, every leaf) of the same
@@ -2127,10 +2463,11 @@ def main(argv=None):
         phase_growth(args, dev)
     campaign_res, campaign_captured, campaign_launches, campaign_trainer = \
         phase_campaign(card, dev)
+    nuplan_res, nuplan_launches = phase_nuplan(card, dev)
     by_path = dict(serving=main_res["launches"], training=train_res["launches"],
                    classic_renders=classic_launches, classic_step=classic_step_launches,
                    render_tool=render_res["launches"], growth=growth_launches,
-                   campaign=campaign_launches)
+                   campaign=campaign_launches, nuplan=nuplan_launches)
     serving_captured = {}  # the kernel wrappers' arguments in one serving view
     with capturing(serving_captured), torch.no_grad():
         render_view(params, aux, cfg, batch, 10**9, device=dev)
@@ -2159,7 +2496,8 @@ def main(argv=None):
         args.out.mkdir(parents=True, exist_ok=True)
         summary = dict(card=card, build_seconds=build_s, goldens=goldens, main=main_res,
                        train=train_res, classic=classic_res, render_tool=render_res,
-                       growth=growth_res, campaign=campaign_res, kernels=kernels, ab=ab,
+                       growth=growth_res, campaign=campaign_res, nuplan=nuplan_res,
+                       kernels=kernels, ab=ab,
                        profile=prof,
                        seconds=time.perf_counter() - t_start)
         (args.out / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

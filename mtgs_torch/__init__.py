@@ -9,11 +9,14 @@ has an obvious counterpart:
                with plain twins
     models/    scene-graph nodes, instances, appearance, state conversion
     train/     render_view, losses, Adam, density control, camera-pose
-               optimisation, the training step and loop
+               optimisation, the training step and loop, checkpoints
+    data/      the synthetic road block; the nuPlan parser, sample loading
+               and loaders, with the port's own JPEG/PNG decoders (host C++)
+    utils/     point-cloud IO and filtering
     eval/      metric suite + the per-traversal eval pipeline
-    tools/     trajectory, camera-path and dataset rendering
+    tools/     rendering, the training campaign, per-road-block training
 
-This package imports torch, numpy and scipy only — never jax or mtgs_tpu.
+This package imports torch, numpy and scipy only — never jax, mtgs_tpu or PIL.
 Entry points take an explicit `device` that defaults to "cuda" and raise
 when no card is present; they never fall back to the CPU on their own.
 """

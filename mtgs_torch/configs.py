@@ -1,6 +1,7 @@
 """Method presets; port of `mtgs_tpu/configs.py::mtgs_config`,
-`optimizer_table`, `METHODS` and `method_config`. The port runs the `mtgs`
-method; the 3DGS, deformable and WildGaussians presets are not ported yet."""
+`gs3d_config`, `optimizer_table`, `METHODS` and `method_config`. The port
+runs the `mtgs` and `3dgs` methods; the deformable and WildGaussians
+presets wait for the port of their nodes (ROADMAP §1 item 3) and raise."""
 
 from __future__ import annotations
 
@@ -67,17 +68,43 @@ def mtgs_config(width: int = 960, height: int = 540, max_steps: int = ITERS) -> 
     )
 
 
+def gs3d_config(width: int = 960, height: int = 540, max_steps: int = ITERS) -> TrainerConfig:
+    """Single-traversal vanilla 3DGS baseline (`mtgs/config/3DGS.py`):
+    classic rasterization, no depth/normal supervision, mono colour."""
+    cfg = mtgs_config(width, height, max_steps)
+    return cfg.replace(
+        rasterize_mode="classic",
+        predict_normals=False,
+        loss=LossConfig(
+            ssim_lambda=0.2,
+            depth_lambda=0.0,
+            ncc_lambda=0.0,
+            use_normal_loss=False,
+            two_d_gaussians=False,
+            sharp_shape_reg_lambda=0.0,
+            oob_lambda=0.0,
+        ),
+    )
+
+
 def optimizer_table(max_steps: int = ITERS) -> OptimConfig:
     """The per-group optimizer table (`mtgs/config/MTGS.py:121-187`)."""
     return OptimConfig(groups=default_groups(max_steps))
 
 
-METHODS = {"mtgs": mtgs_config}
+METHODS = {"mtgs": mtgs_config, "3dgs": gs3d_config}
+# the JAX package's other presets: their deformable nodes and WildGaussians
+# appearance are not ported yet
+NOT_PORTED = ("mtgs_deformable", "wild_gaussians")
 
 
 def method_config(name: str, **kwargs) -> TrainerConfig:
     """The preset of a method by name, with its factory's keyword
     arguments (width, height, max_steps)."""
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"method {name!r} needs deformable nodes and WildGaussians appearance, which "
+            f"are not ported yet (ROADMAP.md §1 item 3); have {sorted(METHODS)}")
     if name not in METHODS:
         raise KeyError(f"unknown method {name!r}; have {sorted(METHODS)}")
     return METHODS[name](**kwargs)

@@ -1,2 +1,3 @@
-"""Datasets: the synthetic multi-traversal road block (`synthetic.py`).
-The nuPlan loaders are not ported yet."""
+"""Datasets: the synthetic multi-traversal road block (`synthetic.py`) and
+the nuPlan road-block layer (`nuplan.py`, `dataset.py`, `loader.py`), which
+reads its images with the port's own decoders (`image_io.py`)."""

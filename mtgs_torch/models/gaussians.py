@@ -14,6 +14,7 @@ with a float `alive` mask beside them:
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -57,6 +58,16 @@ class GaussianNodeParams:
 class NodeAux:
     alive: torch.Tensor        # [cap] float 0/1
     num_alive: torch.Tensor    # [] int32
+
+
+def stack_nodes(nodes):
+    """Same-shaped nodes (any dataclass of tensors and Nones) stacked along
+    a new leading axis, as rigid instances are."""
+    first = nodes[0]
+    return dataclasses.replace(first, **{
+        f.name: None if getattr(first, f.name) is None
+        else torch.stack([getattr(n, f.name) for n in nodes])
+        for f in dataclasses.fields(first)})
 
 
 def node_capacity(n: int, granule: int = 4096) -> int:

@@ -1,1 +1,2 @@
-"""Command-level tools; port of `mtgs_tpu/tools/` (the renderers so far)."""
+"""Command-level tools; port of `mtgs_tpu/tools/` (the renderers, the
+training campaign and the per-road-block trainer so far)."""

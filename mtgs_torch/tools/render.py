@@ -12,14 +12,15 @@ Each frame is one `render_view(training=False)` without autograd on the
 given device ("cuda" unless the caller passes another); at 1920x1080 the
 rasterizer takes its classic path. PNGs are written by `write_png`
 (zlib + struct), so the tool needs no imaging package.
-`render_interpolated` (per-camera mosaics of a parsed nuPlan traversal)
-waits for the port of `data/`.
+`render_interpolated` writes per-camera mosaics along a parsed nuPlan
+traversal (`data.nuplan.ParsedScene`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import struct
 import subprocess
 import zlib
@@ -208,3 +209,60 @@ def render_dataset(params: SceneParams, aux: SceneAux, cfg: TrainerConfig,
             write_png(p, img)
             written.append(p)
     return written
+
+
+def render_interpolated(params: SceneParams, aux: SceneAux, cfg: TrainerConfig, scene,
+                        travel_index: int, out_dir, *,
+                        cameras: Sequence[str] = ("CAM_L0", "CAM_F0", "CAM_R0"),
+                        target_hz: float = 60.0, source_hz: float = 2.0, fps: int = 60,
+                        make_video: bool = True, device="cuda") -> List[Path]:
+    """`interpolate` mode (ref `RenderInterpolated`, `mtgs/tools/
+    render.py:439-552`): slerp-upsample one traversal's per-camera pose
+    path of a ParsedScene to `target_hz` and write side-by-side camera
+    mosaics at cfg's size (the reference concatenates the front and back
+    three-camera sets)."""
+    dev = resolve_device(device)
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    recs = [r for r in scene.records if r.travel_index == travel_index]
+    per_cam = {}
+    for name in cameras:
+        cam_recs = sorted((r for r in recs if r.cam_name == name), key=lambda r: r.frame_idx)
+        if not cam_recs:
+            continue
+        c2ws = np.stack([r.c2w for r in cam_recs])
+        ts = np.asarray([r.timestamp for r in cam_recs], np.float64)
+        poses, tsi = interpolate_poses(c2ws, ts, target_hz=target_hz, source_hz=source_hz)
+        K = cam_recs[0].intrinsic.copy()
+        # the raw intrinsics rescaled onto the render size
+        K[0] *= cfg.width / cam_recs[0].width
+        K[1] *= cfg.height / cam_recs[0].height
+        frame_rows = np.repeat([r.frame_idx for r in cam_recs],
+                               math.ceil(len(poses) / max(len(cam_recs), 1)))[: len(poses)]
+        per_cam[name] = (poses, tsi, K, frame_rows)
+    if not per_cam:
+        raise ValueError(f"traversal {travel_index} has none of {cameras}")
+
+    n = min(len(v[0]) for v in per_cam.values())
+    interp_cfg = cfg.replace(scene=dataclasses.replace(cfg.scene, interp_poses=True))
+    paths: List[Path] = []
+    for i in range(n):
+        tiles = []
+        for name in cameras:
+            if name not in per_cam:
+                continue
+            poses, tsi, K, frame_rows = per_cam[name]
+            # render_view reads no image, mask or depth maps when not training
+            batch = Batch(
+                image=np.zeros((1, 1, 3), np.float32), mask=np.ones((1, 1, 1), np.float32),
+                c2w=np.asarray(poses[i], np.float32), K=np.asarray(K, np.float32), cam_idx=0,
+                image_idx=0, travel_index=travel_index, frame_idx=int(frame_rows[i]),
+                timestamp=float(np.float32(tsi[i])))
+            out = render_view(params, aux, interp_cfg, batch, 10**6, training=False, device=dev)
+            tiles.append(_to_uint8(out["rgb_appearance"]))
+        p = out_dir / f"frame_{i:05d}.png"
+        write_png(p, np.concatenate(tiles, axis=1))
+        paths.append(p)
+    if make_video and paths:
+        frames_to_mp4(out_dir, fps)
+    return paths

@@ -33,7 +33,7 @@ from mtgs_torch import resolve_device
 from mtgs_torch.core.camera import camera_to_gsplat_viewmat
 from mtgs_torch.core.quat import quat_to_rotmat
 from mtgs_torch.models.appearance import apply_exposure
-from mtgs_torch.models.gaussians import NodeAux, node_capacity
+from mtgs_torch.models.gaussians import NodeAux, node_capacity, stack_nodes
 from mtgs_torch.models.scene_graph import (
     SceneAux, SceneConfig, SceneParams, ViewInputs, collect_gaussians, node_segments,
 )
@@ -356,14 +356,6 @@ def _node_slice(node, i):
         for f in dataclasses.fields(node)})
 
 
-def _node_stack(nodes):
-    first = nodes[0]
-    return dataclasses.replace(first, **{
-        f.name: None if getattr(first, f.name) is None
-        else torch.stack([getattr(n, f.name) for n in nodes])
-        for f in dataclasses.fields(first)})
-
-
 class Trainer:
     """Host-side control loop (ref `CustomTrainer.train`)."""
 
@@ -489,15 +481,15 @@ class Trainer:
                         _node_slice(st.densify["instances"], i))
                     for i in range(params.instances.node.means.shape[0])]
             params = dataclasses.replace(params, instances=dataclasses.replace(
-                params.instances, node=_node_stack([o.params for o in outs])))
+                params.instances, node=stack_nodes([o.params for o in outs])))
             mu = dataclasses.replace(mu, instances=dataclasses.replace(
-                mu.instances, node=_node_stack([o.mu for o in outs])))
+                mu.instances, node=stack_nodes([o.mu for o in outs])))
             nu = dataclasses.replace(nu, instances=dataclasses.replace(
-                nu.instances, node=_node_stack([o.nu for o in outs])))
+                nu.instances, node=stack_nodes([o.nu for o in outs])))
             aux = dataclasses.replace(aux, instances=dataclasses.replace(
                 ia, alive=torch.stack([o.aux.alive for o in outs]),
                 num_alive=torch.stack([o.aux.num_alive for o in outs])))
-            st.densify["instances"] = _node_stack([o.state for o in outs])
+            st.densify["instances"] = stack_nodes([o.state for o in outs])
         st.params = params
         st.adam = dataclasses.replace(st.adam, mu=mu, nu=nu)
         self.aux = aux

@@ -1,5 +1,6 @@
-"""mtgs_torch stands alone: it imports neither JAX, flax nor mtgs_tpu, and
-its entry points never fall back to the CPU on their own."""
+"""mtgs_torch stands alone: it imports neither JAX, flax, mtgs_tpu nor PIL,
+builds its image decoders from its own source, and its entry points never
+fall back to the CPU on their own."""
 
 import dataclasses
 import pkgutil
@@ -23,7 +24,7 @@ from mtgs_torch.tools import campaign, render
 from mtgs_torch.train import trainer
 
 PKG = Path(mtgs_torch.__file__).parent
-FORBIDDEN = ("jax", "flax", "mtgs_tpu")
+FORBIDDEN = ("jax", "flax", "mtgs_tpu", "PIL")
 
 
 def all_modules():
@@ -36,6 +37,9 @@ def test_importing_the_port_loads_no_jax():
     assert "mtgs_torch.tools.render" in mods and "mtgs_torch.raster.expand_pairs" in mods
     assert {"mtgs_torch.data.synthetic", "mtgs_torch.train.checkpoint",
             "mtgs_torch.tools.campaign"} <= set(mods)
+    assert {"mtgs_torch.data.image_io", "mtgs_torch.data.nuplan", "mtgs_torch.data.dataset",
+            "mtgs_torch.data.loader", "mtgs_torch.utils.pointcloud",
+            "mtgs_torch.tools.train_scene"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -50,9 +54,9 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_no_source_imports_jax_or_the_jax_package():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|mtgs_tpu)\b|import_module\(\s*['\"]"
-                         r"(jax|flax|mtgs_tpu)")
-    files = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|mtgs_tpu|PIL)\b|import_module\(\s*['\"]"
+                         r"(jax|flax|mtgs_tpu|PIL)")
+    files = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh", ".cc")]
     assert len(files) > 20
     for p in files:
         for i, line in enumerate(p.read_text().splitlines(), 1):
@@ -179,4 +183,24 @@ def test_campaign_entry_points_raise_without_a_card(no_card, tmp_path):
         campaign.make_batch(scene, 0, 0, 1.0)
     assert not (tmp_path / "run").exists()
     with pytest.raises(KeyError, match="mtgs"):
-        configs.method_config("3dgs")
+        configs.method_config("nerf")
+    with pytest.raises(NotImplementedError, match="item 3"):
+        configs.method_config("wild_gaussians")
+    assert configs.method_config("3dgs").rasterize_mode == "classic"
+
+
+def test_image_decoders_build_from_the_checkout(tmp_path, monkeypatch):
+    """`image_io` compiles mtgs_torch/csrc/image_decode.cc with the host
+    compiler into build/mtgs_torch/, under a name hashing the source and
+    the flags; without a compiler it raises, naming it."""
+    from mtgs_torch.data import image_io
+
+    assert image_io.SOURCE == PKG / "csrc" / "image_decode.cc" and image_io.SOURCE.exists()
+    lib = image_io.library_path()
+    assert lib.parent == PKG.parent / "build" / "mtgs_torch"
+    assert lib.name.startswith("image_decode_") and lib.suffix == ".so"
+    assert image_io.build() == lib and lib.exists()
+    monkeypatch.setattr(image_io, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("CXX", "no-such-compiler")
+    with pytest.raises(RuntimeError, match="no-such-compiler"):
+        image_io.build()
