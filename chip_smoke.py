@@ -9,8 +9,9 @@ made from `--seed`: serving (`scene_from_state_dict` -> `evaluate_scene`
 `train_step` -> `loss_and_grads` -> the differentiable `rasterize`), the
 render tool at nuPlan's 1920x1080 (`tools.render.render_camera_path`),
 training across the capacity growth that leaves the fused path, the
-training campaign (`tools.campaign.main`) and a nuPlan road block through
-`tools.train_scene.main` with the port's own JPEG and PNG decoders; and holds
+training campaign (`tools.campaign.main`), a nuPlan road block through
+`tools.train_scene.main` with the port's own JPEG and PNG decoders, and the
+deformable and WildGaussians presets on the campaign's scene; and holds
 the seven hand-written CUDA kernels (`csrc/expand_fused.cu`,
 `csrc/blend_forward.cu`, `csrc/blend_backward.cu`, `csrc/segment_sum.cu`,
 `csrc/expand_pairs.cu`, the two of `csrc/transpose.cu`) against their
@@ -106,6 +107,25 @@ plain PyTorch versions. Phases, each of which raises on failure:
      traversal 0 at 1920x1080 (10 frames, classic path: kernels 1, 5, 6
      once per frame), its middle frame against the plain path with phase
      4's tolerances and flip causes;
+  12. deformables and WildGaussians: on phase 10's scene at full width,
+     DEFORM_STEPS steps of `method_config("mtgs_deformable")` through
+     `Trainer.train`, its rigid 5k instance made a deformable block
+     (capacity 5,120, zero embeddings, a seeded deform MLP) and the
+     deformation switched on at DEFORM_ENABLE (the preset's absolute 3000
+     cut in depth); and DEFORM_STEPS steps of `method_config(
+     "wild_gaussians")` on the scene built with the WildGaussians
+     appearance. Each run with the launch counters zeroed just before and
+     read just after: the four fused kernels once a step; no step
+     non-finite, skipped or truncated. Deformable: the MLP and embeddings
+     bit-equal to their start before the switch while the canonical means
+     move, the canonical means bit-equal after it while every MLP weight
+     trains, the refine consuming the block's densify statistics. Wild:
+     every wild leaf trains, the seen split CAMPAIGN_PSNR_GAIN dB above
+     the untrained model. Both: one gradient step of the trained scene
+     against the all-plain path (GRAD_TOL; where L1 sign flips show, with
+     the kernel forward blend on both sides, as phase 10), the eval, and
+     a checkpoint reloaded into a freshly built model padded to its
+     capacities repeating it within 1e-6; ms per step beside phase 10's;
   5. kernels: each kernel against its plain version, the fused forward two
      at the shapes of one serving view, the backward two at those of one
      training step (both blends also on the faint scene of one more
@@ -159,10 +179,13 @@ from mtgs_torch import configs
 from mtgs_torch.data import image_io, loader as data_loader
 from mtgs_torch.data.dataset import SampleConfig, load_sample, undistort_image
 from mtgs_torch.data.nuplan import parse_scene
+from mtgs_torch.data.synthetic import build_scene_model
 from mtgs_torch.eval.metrics import masked_psnr
 from mtgs_torch.eval.pipeline import EvalConfig, evaluate_scene
 from mtgs_torch.models.convert import scene_from_state_dict
+from mtgs_torch.models.deform import init_deform_mlp
 from mtgs_torch.models.gaussians import init_skybox_node, node_capacity
+from mtgs_torch.models.scene_graph import DeformableParams
 from mtgs_torch.raster import (
     RasterizeConfig, binning, blend, cuda_build, expand_fused, expand_pairs, rasterize,
     segment_sum,
@@ -174,6 +197,7 @@ from mtgs_torch.raster.expand_fused import fused_fits
 from mtgs_torch.tools import campaign, train_scene
 from mtgs_torch.tools import render as render_tool
 from mtgs_torch.train import checkpoint
+from mtgs_torch.train.optim import named_leaves
 from mtgs_torch.train.trainer import Batch, Trainer, loss_and_grads, render_view
 
 # the modules (the packages' attributes of these names are functions)
@@ -224,6 +248,9 @@ NUPLAN_PSNR_GAIN = 1.0   # dB: the trained eval over the untrained build's
 NUPLAN_EVAL_TOL = 1e-6   # eval_setup + evaluate_scene against eval_result.json
 NUPLAN_MEANS_TOL = 1 / 255  # the JPEGs' 1/32-scale block means against the manifest's (PIL)
 INTERP_HZ = 6.0          # render_interpolated: 4 frames at 2 Hz become 10
+DEFORM_STEPS = 300       # phase 12: steps of each preset on phase 10's scene
+DEFORM_ENABLE = 150      # the deformation switch (the preset's absolute 3000, cut in depth)
+DEFORM_SEED = 12         # the deform MLP's generator
 # the training start: the scene's alive rows jittered by these standard deviations
 JITTER = dict(means=0.05, features_dc=0.3, opacities=0.5)
 
@@ -1314,9 +1341,16 @@ def campaign_recorders(rec: dict):
 def campaign_schedule(cargs):
     """The refine and opacity-reset steps of `Trainer.train`'s schedule for
     the campaign's preset, computed from its ControlConfig."""
-    cc = configs.method_config("mtgs", max_steps=cargs.steps).control
+    return campaign_schedule_for(configs.method_config("mtgs", max_steps=cargs.steps),
+                                 cargs.steps)
+
+
+def campaign_schedule_for(cfg, steps: int):
+    """The refine and opacity-reset steps of `Trainer.train`'s schedule for
+    `steps` steps of `cfg`, computed from its ControlConfig."""
+    cc = cfg.control
     refines, resets = [], []
-    for s in range(1, cargs.steps + 1):
+    for s in range(1, steps + 1):
         if s > cc.densify_from_iter and s % cc.refine_every == 0:
             if s < cc.stop_split_at or cc.continue_cull_post_densification:
                 refines.append(s)
@@ -1349,7 +1383,7 @@ def phase_campaign(card: str, dev):
     evaluated; one full-resolution view and one gradient step of the final
     scene are held against the plain path. Returns (results, the kernel
     wrappers' arguments in that gradient step, the run's launches, the
-    rebuilt trainer)."""
+    rebuilt trainer, the campaign's synthetic scene)."""
     out = ROOT / "build" / "chip_smoke" / "campaign"
     shutil.rmtree(out, ignore_errors=True)
     argv = ["--out", str(out), "--steps", str(CAMPAIGN_STEPS),
@@ -1550,7 +1584,7 @@ def campaign_checks(cargs, out: Path, rec: dict, rc, printed: str, wall_s: float
         f"seen psnr {seen_psnr:.3f} dB (untrained {seen_psnr0:.3f}); eval fps "
         f"{result['fps']:.2f}; rebuilt eval max diff {res['rebuilt_eval_max_diff']:.3g}")
     log(f"# campaign ({card}): trained-scene view vs plain {view_err}")
-    return res, captured, launches, rebuilt
+    return res, captured, launches, rebuilt, scene
 
 
 def nuplan_fixture():
@@ -1850,11 +1884,14 @@ def _phase_nuplan(fx, work: Path, card: str, dev):
     return res, total
 
 
-def trained_scene_grads(trainer, cfg, batch):
+def trained_scene_grads(trainer, cfg, batch, label: str = "campaign",
+                        all_plain_first: bool = False):
     """One gradient step of a trained scene (at the trainer's step) on the
     kernel path, held within GRAD_TOL (max-scaled, every leaf) of the same
     step with every kernel but the forward blend swapped for its plain
-    version. The forward blend is held on its own at this step's inputs
+    version (with all_plain_first: of the all-plain step, and only where
+    L1 sign flips show of the step with the kernel forward blend on both
+    sides; `held_against` says which). The forward blend is held on its own at this step's inputs
     (phase 5's `at_campaign` row) and in a view of the scene: with the
     plain forward in the reference too, the comparison would be
     ill-conditioned here, as the all-plain errors and `l1_sign_flips`
@@ -1878,27 +1915,297 @@ def trained_scene_grads(trainer, cfg, batch):
     got, rgb = runs["kernel"]
     errs = {k: max_scaled_err(got[k], w) for k, w in ref.items()}
     require(all(np.isfinite(float(x.abs().max())) for x in got.values() if x.numel()),
-            "non-finite gradient on the trained scene")
-    bad = {k: e for k, e in errs.items() if not e <= GRAD_TOL}
-    require(not bad, f"trained-scene gradients differ from the plain path's (its forward "
-            f"blend the kernel's): {bad}")
+            f"{label}: non-finite gradient on the trained scene")
     plain, rgb_plain = runs["plain"]
     all_plain = {k: max_scaled_err(got[k], w) for k, w in plain.items()}
     gt = torch.as_tensor(batch.image, device=rgb.device)
     flips = int((torch.sign(rgb - gt) != torch.sign(rgb_plain - gt)).sum())
-    res = dict(errors=errs, worst=max(errs, key=errs.get), max_err=max(errs.values()),
+    held = "plain_but_forward"
+    if all_plain_first:
+        held = "plain" if all(e <= GRAD_TOL for e in all_plain.values()) else held
+        require(held == "plain" or flips > 0,
+                f"{label}: gradients differ from the all-plain path's with no L1 sign flip: "
+                f"{ {k: e for k, e in all_plain.items() if not e <= GRAD_TOL} }")
+    bad = {k: e for k, e in errs.items() if not e <= GRAD_TOL}
+    require(held == "plain" or not bad, f"{label}: trained-scene gradients differ from the "
+            f"plain path's (its forward blend the kernel's): {bad}")
+    res = dict(held_against=held,
+               errors=errs, worst=max(errs, key=errs.get), max_err=max(errs.values()),
                all_plain_errors=all_plain, all_plain_worst=max(all_plain, key=all_plain.get),
                all_plain_max_err=max(all_plain.values()), l1_sign_flips=flips,
                forward_rgb_max_diff=float((rgb - rgb_plain).abs().max()),
                kernel_vs_reference_rgb_equal=bool(torch.equal(rgb, rgb_ref)),
                captured=captured)
-    log(f"# campaign: trained-scene gradient step (step {trainer.state.step}), kernel path "
-        f"against plain but the forward blend (max-scaled, tol {GRAD_TOL}): worst "
+    log(f"# {label}: trained-scene gradient step (step {trainer.state.step}), held against "
+        f"{held}; kernel path against plain but the forward blend (max-scaled, tol "
+        f"{GRAD_TOL}): worst "
         f"{res['worst']} {res['max_err']:.3g}; against the all-plain path: worst "
         f"{res['all_plain_worst']} {res['all_plain_max_err']:.3g}, forward rgb max diff "
         f"{res['forward_rgb_max_diff']:.3g}, L1 residual signs flipped at {flips} of "
         f"{rgb.numel()} pixel channels")
     return res
+
+
+def deform_recorders(rec: dict):
+    """Wrappers of `Trainer.step` (each step's host time between
+    synchronizes, index, deformation switch, pair count, buffer, loss,
+    skip flag) and `Trainer.refine` (the deformable block's alive count
+    and densify visibility sum before and after), for phase 12."""
+    def step(fn):
+        def call(self, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = fn(self, batch)
+            torch.cuda.synchronize()
+            rec["steps"].append(dict(
+                ms=1e3 * (time.perf_counter() - t0), step=self.state.step - 1,
+                deform=self.cfg.scene.deform_enabled, limit=self.cfg.max_intersections,
+                n=int(m["n_intersections"]), loss=float(m["total_loss"]),
+                skipped=float(m["nonfinite_grad_step"])))
+            return m
+        return call
+
+    def refine(fn):
+        def call(self, flags):
+            def block():
+                a, d = self.aux.deformables, self.state.densify.get("deformables")
+                return None if a is None else dict(
+                    alive=int(a.num_alive.sum()), seen=float(d.vis_counts.sum()),
+                    cap=int(a.alive.shape[1]))
+            before = block()
+            info = fn(self, flags)
+            rec["refines"].append(dict(step=info["step"], before=before, after=block(),
+                                       n_split=info["n_split"], n_dup=info["n_dup"],
+                                       n_cull=info["n_cull"]))
+            return info
+        return call
+
+    return [(Trainer, "step", step), (Trainer, "refine", refine)]
+
+
+def deformable_scene(scene, cargs, dev):
+    """Phase 10's scene model (`build_scene_model`, with its 5k instance and
+    100k skybox) with the rigid instance block made a deformable one, as the
+    JAX package's test_train_e2e.py does: capacity 5,120, zero embeddings
+    [1, 16], the deform MLP from a seeded generator."""
+    params, aux = build_scene_model(scene, with_instances=True, with_skybox=True,
+                                    skybox_points=cargs.skybox_points, device=dev)
+    inst = params.instances
+    deform = DeformableParams(
+        node=inst.node, quats=inst.quats, trans=inst.trans,
+        embeddings=torch.zeros((inst.node.means.shape[0], 16), device=dev),
+        mlp=init_deform_mlp(generator=torch.Generator().manual_seed(DEFORM_SEED), device=dev))
+    return (dataclasses.replace(params, instances=None, deformables=deform),
+            dataclasses.replace(aux, instances=None, deformables=aux.instances))
+
+
+def leaves_of(tree, prefix: str) -> dict:
+    """{path: a copy} of a tree's leaves under `prefix`."""
+    return {k: v.detach().clone() for k, v in named_leaves(tree) if k.startswith(prefix)}
+
+
+def changed(now: dict, then: dict) -> dict:
+    """For each leaf: whether it differs from its earlier copy."""
+    return {k: not torch.equal(now[k], then[k]) for k in then}
+
+
+def deform_run(label: str, cfg, params, aux, scene, cargs, dev, chunks, snaps: dict):
+    """Trains a phase-12 model for DEFORM_STEPS steps through `Trainer.train`
+    in `chunks` of steps, with the launch counters zeroed just before and
+    read just after; after each chunk snaps[step] holds copies of the
+    deformable block's leaves (no launch). Requires each fused kernel to launch once a
+    step and no step to be non-finite, skipped or truncated. Returns
+    (trainer, launches, the per-step and refine records)."""
+    _, _, train_pairs, _ = campaign.splits(cargs.n_travels, cargs.n_frames)
+    data = campaign.make_factory(scene, train_pairs, device=dev)(1.0)
+    trainer = Trainer(cfg, params, aux, data,
+                      optim_config=configs.optimizer_table(DEFORM_STEPS), device=dev)
+    rec = dict(steps=[], refines=[])
+    with contextlib.ExitStack() as stack:
+        for owner, name, wrap in deform_recorders(rec):
+            stack.enter_context(wrapped(owner, name, wrap))
+        torch.cuda.synchronize()
+        # the preset's training path: kernel launches counted from here ...
+        cuda_build.reset_launches()
+        for n in chunks:
+            trainer.train(n)
+            snaps[trainer.state.step] = leaves_of(trainer.state.params, "deformables")
+        torch.cuda.synchronize()
+        launches = dict(cuda_build.LAUNCHES)
+        # ... to here
+    steps = DEFORM_STEPS
+    require(len(rec["steps"]) == steps == trainer.state.step,
+            f"{label}: {len(rec['steps'])} steps recorded, {trainer.state.step} trained")
+    require_launches(launches, {k: steps for k in FUSED_KERNELS},
+                     f"{label}: {steps} fused training steps")
+    bad = [r for r in rec["steps"] if not np.isfinite(r["loss"]) or r["skipped"]
+           or r["n"] > r["limit"]]
+    require(not bad, f"{label}: non-finite, skipped or truncated steps {bad[:3]}")
+    return trainer, launches, rec
+
+
+def deform_eval_and_reload(label: str, trainer, rebuild, scene, cargs, dev, work: Path):
+    """`evaluate_scene` of a trained phase-12 model over phase 10's eval
+    views; its checkpoint saved, a freshly built model padded to
+    `checkpoint_layout`'s capacities and loaded, and its eval within
+    CAMPAIGN_EVAL_TOL of the first. Returns (eval, the eval batches, the
+    reload's largest difference)."""
+    _, _, _, eval_pairs = campaign.splits(cargs.n_travels, cargs.n_frames)
+    modes = campaign.travel_modes_for(cargs.n_travels)
+    batches = [campaign.make_batch(scene, t, f, 1.0, dev) for t, f in eval_pairs]
+    result = evaluate_scene(trainer.state.params, trainer.aux, trainer.cfg, batches,
+                            travel_modes=modes, device=dev)
+    path = work / label
+    checkpoint.save_checkpoint(path, trainer.state, trainer.aux, keep_optimizer=False)
+    layout = checkpoint.checkpoint_layout(path)
+    params, aux = checkpoint.pad_scene_to_caps(*rebuild(), layout["caps"])
+    fresh = Trainer(trainer.cfg, params, aux, iter(()), device=dev)
+    got = checkpoint.load_checkpoint(path, dict(params=fresh.state.params,
+                                                densify=fresh.state.densify,
+                                                step=fresh.state.step, aux=fresh.aux))
+    shutil.rmtree(path, ignore_errors=True)
+    again = evaluate_scene(got["params"], got["aux"], trainer.cfg, batches, travel_modes=modes,
+                           device=dev)
+    diff = max(abs(again[k] - result[k]) for k in result if k not in ("fps", "num_images")
+               and not (np.isnan(again[k]) and np.isnan(result[k])))
+    require(diff <= CAMPAIGN_EVAL_TOL and got["step"] == DEFORM_STEPS,
+            f"{label}: the reloaded checkpoint's eval differs by {diff}")
+    return result, batches, diff, layout["caps"]
+
+
+def phase_deformables(card: str, dev, scene, campaign_res: dict):
+    """Phase 12: the `mtgs_deformable` and `wild_gaussians` presets trained
+    on phase 10's scene at full width through `Trainer.train`. Returns
+    (results, {"deformable": launches, "wild": launches}, {preset: its
+    trained Trainer})."""
+    cargs = argparse.Namespace(**campaign_res["argv"])
+    work = Path(tempfile.mkdtemp(prefix="deform_", dir=ROOT / "build"))
+    t0 = time.perf_counter()
+    try:
+        deform, deform_launches, deform_trainer = phase_mtgs_deformable(
+            card, dev, scene, cargs, work)
+        wild, wild_launches, wild_trainer = phase_wild(card, dev, scene, cargs, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ms_mtgs = campaign_res["ms_per_step_by_scale"].get("1.0")
+    res = dict(mtgs_deformable=deform, wild_gaussians=wild, phase_s=time.perf_counter() - t0,
+               mtgs_ms_per_step=ms_mtgs)
+    log(f"# deformables ({card}): ms/step (median, host clock between synchronizes): "
+        f"mtgs_deformable {deform['ms_per_step_before']:.2f} before the switch, "
+        f"{deform['ms_per_step_after']:.2f} after; wild_gaussians "
+        f"{wild['ms_per_step']:.2f}; phase 10's mtgs at full resolution {ms_mtgs}; "
+        f"phase 12 took {res['phase_s']:.1f} s")
+    return (res, dict(deformable=deform_launches, wild=wild_launches),
+            dict(mtgs_deformable=deform_trainer, wild_gaussians=wild_trainer))
+
+
+def phase_mtgs_deformable(card: str, dev, scene, cargs, work: Path):
+    """(a) `method_config("mtgs_deformable", max_steps=DEFORM_STEPS)` with the
+    switch at DEFORM_ENABLE: the MLP and embeddings bit-equal to their start
+    before it while the canonical means move; the canonical means bit-equal
+    from it on (no refine falls after it) while the MLP trains; the refine
+    over the deformable block consumes its densify statistics; one step
+    after the switch against the plain path; the eval and a reload."""
+    label = "mtgs_deformable"
+    cfg = configs.method_config(label, max_steps=DEFORM_STEPS).replace(
+        deform_enable_step=DEFORM_ENABLE)
+    params, aux = deformable_scene(scene, cargs, dev)
+    snaps = {0: leaves_of(params, "deformables")}
+    refine_at = campaign_schedule_for(cfg, DEFORM_STEPS)[0]
+    trainer, launches, rec = deform_run(
+        label, cfg, params, aux, scene, cargs, dev,
+        [refine_at[0], DEFORM_ENABLE - refine_at[0], 1, DEFORM_STEPS - DEFORM_ENABLE - 1],
+        snaps)
+    _, _, train_pairs, _ = campaign.splits(cargs.n_travels, cargs.n_frames)
+    grads = trained_scene_grads(trainer, trainer.cfg,
+                                campaign.make_batch(scene, *train_pairs[0], 1.0, dev),
+                                label=label, all_plain_first=True)
+    grads.pop("captured")
+    require(trainer.cfg.scene.deform_enabled
+            and [r["deform"] for r in rec["steps"]] == [s >= DEFORM_ENABLE for s in
+                                                         range(DEFORM_STEPS)],
+            f"{label}: deformation not switched on at step {DEFORM_ENABLE}")
+    mlp = lambda k: k.startswith(("deformables.mlp", "deformables.embeddings"))
+    start, r0, pre, flip, end = (snaps[k] for k in (0, refine_at[0], DEFORM_ENABLE,
+                                                    DEFORM_ENABLE + 1, DEFORM_STEPS))
+    require(not any(v for k, v in changed(pre, start).items() if mlp(k)),
+            f"{label}: the MLP or the embeddings moved before step {DEFORM_ENABLE}")
+    require(changed(pre, r0)["deformables.node.means"],
+            f"{label}: the canonical means did not move before step {DEFORM_ENABLE}")
+    after_refines = [r for r in rec["refines"] if r["step"] > DEFORM_ENABLE]
+    frozen = not after_refines and not changed(end, pre)["deformables.node.means"]
+    require(frozen and not changed(flip, pre)["deformables.node.means"],
+            f"{label}: the canonical means moved after step {DEFORM_ENABLE}")
+    moved = changed(end, pre)
+    require(all(moved[k] for k in moved if k.startswith("deformables.mlp.w")),
+            f"{label}: not every MLP weight trained after step {DEFORM_ENABLE}: {moved}")
+    require([r["step"] for r in rec["refines"]] == refine_at,
+            f"{label}: refines at {[r['step'] for r in rec['refines']]}, expected {refine_at}")
+    for r in rec["refines"]:
+        require(r["before"]["seen"] > 0 and r["after"]["seen"] == 0,
+                f"{label}: the refine at {r['step']} did not consume the deformable block's "
+                f"densify statistics: {r}")
+
+    result, _, reload_diff, caps = deform_eval_and_reload(
+        label, trainer, lambda: deformable_scene(scene, cargs, dev), scene, cargs, dev, work)
+    ms = lambda on: float(np.median([r["ms"] for r in rec["steps"][5:] if r["deform"] == on]))
+    res = dict(steps=DEFORM_STEPS, deform_enable_step=DEFORM_ENABLE, launches=launches,
+               refines=rec["refines"], grads=grads, eval=result, reload_max_diff=reload_diff,
+               caps=caps, ms_per_step_before=ms(False), ms_per_step_after=ms(True),
+               step_ms=[r["ms"] for r in rec["steps"]],
+               n_intersections_max=max(r["n"] for r in rec["steps"]),
+               embeddings_moved=moved["deformables.embeddings"])
+    log(f"# {label} ({card}): {DEFORM_STEPS} steps, deformation on at {DEFORM_ENABLE}; "
+        f"ms/step {res['ms_per_step_before']:.2f} before, {res['ms_per_step_after']:.2f} after; "
+        f"refines {rec['refines']}; launches {launches}; eval psnr {result['psnr']:.3f}; "
+        f"reload max diff {reload_diff:.3g}; gradient step held against "
+        f"{grads['held_against']}, all-plain worst {grads['all_plain_worst']} "
+        f"{grads['all_plain_max_err']:.3g}, L1 sign flips {grads['l1_sign_flips']}")
+    return res, launches, trainer
+
+
+def phase_wild(card: str, dev, scene, cargs, work: Path):
+    """(b) `method_config("wild_gaussians", max_steps=DEFORM_STEPS)` on the
+    scene built with the WildGaussians appearance: every wild leaf trains,
+    the seen split gains CAMPAIGN_PSNR_GAIN dB over the untrained model, one
+    gradient step against the plain path, the eval and a reload."""
+    label = "wild_gaussians"
+    cfg = configs.method_config(label, max_steps=DEFORM_STEPS)
+    build = lambda: build_scene_model(scene, with_skybox=True, wild_appearance=True,
+                                      skybox_points=cargs.skybox_points, device=dev)
+    params, aux = build()
+    start = leaves_of(params, "wild")
+    trainer, launches, rec = deform_run(label, cfg, params, aux, scene, cargs, dev,
+                                        [DEFORM_STEPS], {})
+    _, _, train_pairs, _ = campaign.splits(cargs.n_travels, cargs.n_frames)
+    grads = trained_scene_grads(trainer, trainer.cfg,
+                                campaign.make_batch(scene, *train_pairs[0], 1.0, dev),
+                                label=label, all_plain_first=True)
+    grads.pop("captured")
+    moved = changed(leaves_of(trainer.state.params, "wild"), start)
+    require(all(moved.values()), f"{label}: not every wild leaf trained: {moved}")
+    result, batches, reload_diff, caps = deform_eval_and_reload(
+        label, trainer, build, scene, cargs, dev, work)
+    seen, _, _, _ = campaign.splits(cargs.n_travels, cargs.n_frames)
+    untrained = evaluate_scene(*build(), trainer.cfg, batches,
+                               travel_modes=campaign.travel_modes_for(cargs.n_travels),
+                               device=dev)
+    seen_psnr = float(np.mean([result[f"trv{t}_psnr"] for t in seen]))
+    seen_psnr0 = float(np.mean([untrained[f"trv{t}_psnr"] for t in seen]))
+    require(seen_psnr >= seen_psnr0 + CAMPAIGN_PSNR_GAIN,
+            f"{label}: seen-split psnr {seen_psnr:.3f} dB, untrained {seen_psnr0:.3f} dB")
+    res = dict(steps=DEFORM_STEPS, launches=launches, refines=rec["refines"], grads=grads,
+               eval=result, untrained_eval=untrained, seen_psnr=seen_psnr,
+               untrained_seen_psnr=seen_psnr0, reload_max_diff=reload_diff, caps=caps,
+               ms_per_step=float(np.median([r["ms"] for r in rec["steps"][5:]])),
+               step_ms=[r["ms"] for r in rec["steps"]],
+               n_intersections_max=max(r["n"] for r in rec["steps"]), wild_moved=moved)
+    log(f"# {label} ({card}): {DEFORM_STEPS} steps; ms/step {res['ms_per_step']:.2f}; seen "
+        f"psnr {seen_psnr:.3f} dB (untrained {seen_psnr0:.3f}); launches {launches}; reload "
+        f"max diff {reload_diff:.3g}; gradient step held against {grads['held_against']}, "
+        f"all-plain worst {grads['all_plain_worst']} {grads['all_plain_max_err']:.3g}, L1 "
+        f"sign flips {grads['l1_sign_flips']}")
+    return res, launches, trainer
 
 
 def row_errors(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
@@ -2461,13 +2768,16 @@ def main(argv=None):
         render_view(*frame_a, **frame_kw)
     growth_trainer, growth_res, growth_captured, growth_fused_captured, growth_launches = \
         phase_growth(args, dev)
-    campaign_res, campaign_captured, campaign_launches, campaign_trainer = \
+    campaign_res, campaign_captured, campaign_launches, campaign_trainer, campaign_scene = \
         phase_campaign(card, dev)
     nuplan_res, nuplan_launches = phase_nuplan(card, dev)
+    deform_res, deform_launches, deform_trainers = phase_deformables(
+        card, dev, campaign_scene, campaign_res)
+    del campaign_scene
     by_path = dict(serving=main_res["launches"], training=train_res["launches"],
                    classic_renders=classic_launches, classic_step=classic_step_launches,
                    render_tool=render_res["launches"], growth=growth_launches,
-                   campaign=campaign_launches, nuplan=nuplan_launches)
+                   campaign=campaign_launches, nuplan=nuplan_launches, **deform_launches)
     serving_captured = {}  # the kernel wrappers' arguments in one serving view
     with capturing(serving_captured), torch.no_grad():
         render_view(params, aux, cfg, batch, 10**9, device=dev)
@@ -2490,14 +2800,17 @@ def main(argv=None):
                                              lambda: growth_trainer.train(1)),
             campaign_step=phase_profile(
                 "one full-resolution training step of the campaign's final scene",
-                lambda: campaign_trainer.train(1)))
+                lambda: campaign_trainer.train(1)),
+            **{f"{name}_step": phase_profile(
+                f"one {name} training step (phase 12's trained scene)",
+                lambda t=t: t.train(1)) for name, t in deform_trainers.items()})
 
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         summary = dict(card=card, build_seconds=build_s, goldens=goldens, main=main_res,
                        train=train_res, classic=classic_res, render_tool=render_res,
                        growth=growth_res, campaign=campaign_res, nuplan=nuplan_res,
-                       kernels=kernels, ab=ab,
+                       deformables=deform_res, kernels=kernels, ab=ab,
                        profile=prof,
                        seconds=time.perf_counter() - t_start)
         (args.out / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

@@ -7,7 +7,8 @@ has an obvious counterpart:
     raster/    projection, binning, the differentiable rasterizer (fused and
                classic paths) and its hand-written CUDA kernels (csrc/)
                with plain twins
-    models/    scene-graph nodes, instances, appearance, state conversion
+    models/    scene-graph nodes, rigid and deformable instances, the deform
+               and WildGaussians MLPs, appearance, state conversion
     train/     render_view, losses, Adam, density control, camera-pose
                optimisation, the training step and loop, checkpoints
     data/      the synthetic road block; the nuPlan parser, sample loading

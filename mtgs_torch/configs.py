@@ -1,9 +1,10 @@
-"""Method presets; port of `mtgs_tpu/configs.py::mtgs_config`,
-`gs3d_config`, `optimizer_table`, `METHODS` and `method_config`. The port
-runs the `mtgs` and `3dgs` methods; the deformable and WildGaussians
-presets wait for the port of their nodes (ROADMAP §1 item 3) and raise."""
+"""Method presets; port of `mtgs_tpu/configs.py`: `mtgs_config`,
+`gs3d_config`, `mtgs_deformable_config`, `wild_gaussians_config`,
+`optimizer_table`, `METHODS` and `method_config`."""
 
 from __future__ import annotations
+
+import dataclasses
 
 from mtgs_torch.models.scene_graph import SceneConfig
 from mtgs_torch.train.control import ControlConfig
@@ -87,24 +88,45 @@ def gs3d_config(width: int = 960, height: int = 540, max_steps: int = ITERS) -> 
     )
 
 
+DEFORM_ENABLE_STEP = 3000  # reference use_deformgs_after (deformable_node.py)
+
+
+def mtgs_deformable_config(width: int = 960, height: int = 540,
+                           max_steps: int = ITERS) -> TrainerConfig:
+    """MTGS with deformable pedestrian nodes (`mtgs/config/MTGS_deformable.py`):
+    the Trainer turns `scene.deform_enabled` on at DEFORM_ENABLE_STEP, an
+    absolute step that max_steps does not scale, and freezes the
+    canonical xyz from then on."""
+    cfg = mtgs_config(width, height, max_steps)
+    return cfg.replace(scene=dataclasses.replace(cfg.scene, deform_enabled=False),
+                       deform_enable_step=DEFORM_ENABLE_STEP)
+
+
+def wild_gaussians_config(width: int = 960, height: int = 540,
+                          max_steps: int = ITERS) -> TrainerConfig:
+    """The WildGaussians appearance baseline (`mtgs/config/WildGaussians.py`):
+    the `mtgs` preset; the appearance MLP comes with the scene
+    (`init_scene(..., wild_appearance=True)`,
+    `build_scene_model(..., wild_appearance=True)`)."""
+    return mtgs_config(width, height, max_steps)
+
+
 def optimizer_table(max_steps: int = ITERS) -> OptimConfig:
     """The per-group optimizer table (`mtgs/config/MTGS.py:121-187`)."""
     return OptimConfig(groups=default_groups(max_steps))
 
 
-METHODS = {"mtgs": mtgs_config, "3dgs": gs3d_config}
-# the JAX package's other presets: their deformable nodes and WildGaussians
-# appearance are not ported yet
-NOT_PORTED = ("mtgs_deformable", "wild_gaussians")
+METHODS = {
+    "mtgs": mtgs_config,
+    "3dgs": gs3d_config,
+    "mtgs_deformable": mtgs_deformable_config,
+    "wild_gaussians": wild_gaussians_config,
+}
 
 
 def method_config(name: str, **kwargs) -> TrainerConfig:
     """The preset of a method by name, with its factory's keyword
     arguments (width, height, max_steps)."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"method {name!r} needs deformable nodes and WildGaussians appearance, which "
-            f"are not ported yet (ROADMAP.md §1 item 3); have {sorted(METHODS)}")
     if name not in METHODS:
         raise KeyError(f"unknown method {name!r}; have {sorted(METHODS)}")
     return METHODS[name](**kwargs)

@@ -26,6 +26,11 @@ def rgb_to_sh(rgb):
     return (rgb - 0.5) / _C0
 
 
+def sh_to_rgb(sh):
+    """The DC SH coefficient to RGB (tensor or numpy array)."""
+    return sh * _C0 + 0.5
+
+
 def sh_basis(degree: int, dirs: torch.Tensor) -> torch.Tensor:
     """Real SH basis at unit directions: [..., 3] -> [..., num_sh_bases]."""
     if not 0 <= degree <= 3:

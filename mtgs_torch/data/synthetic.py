@@ -317,16 +317,15 @@ def build_scene_model(scene: SyntheticScene, *, with_instances: bool = True,
                       wild_appearance: bool = False, skybox_points: int = 2048,
                       device="cuda"):
     """SceneParams/SceneAux seeded from a synthetic scene, on `device`: a
-    multicolour background with per-traversal SH rest, an optional skybox
-    and the vehicle as one rigid instance with noisy initial poses (pose
-    optimisation must recover them)."""
+    multicolour background with per-traversal SH rest, an optional skybox,
+    the vehicle as one rigid instance with noisy initial poses (pose
+    optimisation must recover them) and, with wild_appearance, the
+    WildGaussians embeddings and MLP (one embedding per frame row)."""
     from mtgs_torch.models.gaussians import (
         init_node_from_points, init_skybox_node, node_capacity,
     )
     from mtgs_torch.models.scene_graph import InstanceAux, InstanceParams, init_scene
 
-    if wild_appearance:
-        raise NotImplementedError("WildGaussians appearance is not ported yet")
     dev = resolve_device(device)
     bg = init_node_from_points(
         scene.seed_xyz, scene.seed_rgb,
@@ -365,4 +364,5 @@ def build_scene_model(scene: SyntheticScene, *, with_instances: bool = True,
         )
         inst = (params, iaux)
 
-    return init_scene(bg, sky, inst, num_cameras=1, num_images=scene.frame_rows, device=dev)
+    return init_scene(bg, sky, inst, num_cameras=1, num_images=scene.frame_rows,
+                      wild_appearance=wild_appearance, device=dev)

@@ -3,18 +3,20 @@
 Port of `mtgs_tpu/models/scene_graph.py`: every node is a padded block
 and composition is a concatenation
 
-    [ background | skybox | instance 0 | instance 1 | ... ]
+    [ background | skybox | instance 0 | ... | deformable 0 | ... ]
 
 with frame/traversal gating folded into opacity (an absent instance has
-opacity 0 and is dropped before binning). Rigid instances are stacked:
-their node tensors carry a leading instance axis.
-
-Deformable nodes and WildGaussians appearance are not ported yet; a scene
-that carries them raises NotImplementedError.
+opacity 0 and is dropped before binning). Rigid and deformable instances
+are stacked: their node tensors carry a leading instance axis. Deformable
+(pedestrian/cyclist) instances add the deformation MLP of
+`models/deform.py` once `SceneConfig.deform_enabled` is set; with
+`SceneParams.wild` the background and skybox take their colours from the
+WildGaussians appearance MLP of `models/wild.py` instead of SH.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -23,6 +25,8 @@ import torch
 from mtgs_torch import resolve_device
 from mtgs_torch.core.quat import quat_mult, quat_normalize, quat_rotate, slerp
 from mtgs_torch.core.sh import sh_basis
+from mtgs_torch.models import deform as deform_lib
+from mtgs_torch.models import wild as wild_lib
 from mtgs_torch.models.gaussians import (
     GaussianNodeParams, NodeAux, get_opacities, get_quats, get_scales,
 )
@@ -49,14 +53,30 @@ class InstanceAux:
 
 
 @dataclass
+class DeformableParams:
+    """Stacked deformable (pedestrian/cyclist) instances and their shared MLP."""
+
+    node: GaussianNodeParams            # [I, cap, ...] canonical gaussians
+    quats: torch.Tensor                 # [I, F, 4]
+    trans: torch.Tensor                 # [I, F, 3]
+    embeddings: torch.Tensor            # [I, embed_dim]
+    mlp: deform_lib.DeformMLPParams
+
+
+@dataclass
 class SceneParams:
+    """The learnable tree, in the JAX SceneParams' field order (the order
+    `optim.named_leaves` walks)."""
+
     background: GaussianNodeParams
     skybox: Optional[GaussianNodeParams]
     instances: Optional[InstanceParams]
+    deformables: Optional[DeformableParams]
     appearance: torch.Tensor            # [num_cams, 3, 4] exposure affine
     camera_opt: torch.Tensor            # [num_images, 6] SO3xR3 deltas
-    deformables: Optional[object] = None   # not ported: must be None
-    wild: Optional[object] = None          # not ported: must be None
+    # WildGaussians: a per-image embedding and colour MLP replacing SH view
+    # dependence on the multicolour nodes; None for the other methods
+    wild: Optional[wild_lib.WildAppearanceParams] = None
 
 
 @dataclass
@@ -64,7 +84,7 @@ class SceneAux:
     background: NodeAux
     skybox: Optional[NodeAux]
     instances: Optional[InstanceAux]
-    deformables: Optional[object] = None
+    deformables: Optional[InstanceAux] = None
 
 
 @dataclass(frozen=True)
@@ -72,6 +92,10 @@ class SceneConfig:
     sh_degree: int = 3
     travel_mode: str = "index"          # "index" | "mean" | "null"
     interp_poses: bool = False
+    # the deformation MLP is live (and the canonical means frozen); the
+    # Trainer sets it once at TrainerConfig.deform_enable_step
+    deform_enabled: bool = False
+    deform_xyz_bound: float = 4.0
 
 
 @dataclass
@@ -88,7 +112,7 @@ class ViewInputs:
 
 def node_segments(params: SceneParams) -> List[Tuple[str, int, int]]:
     """(name, start, end) of each node's rows in the concatenation
-    [background | skybox | instance 0 | instance 1 | ...]."""
+    [background | skybox | instance 0 | ... | deformable 0 | ...]."""
     segs = []
     off = 0
     caps = [("background", params.background.capacity)]
@@ -97,6 +121,9 @@ def node_segments(params: SceneParams) -> List[Tuple[str, int, int]]:
     if params.instances is not None:
         n_inst, icap = params.instances.node.means.shape[:2]
         caps += [(f"instance_{i}", icap) for i in range(n_inst)]
+    if params.deformables is not None:
+        n_def, dcap = params.deformables.node.means.shape[:2]
+        caps += [(f"deformable_{i}", dcap) for i in range(n_def)]
     for name, cap in caps:
         segs.append((name, off, off + cap))
         off += cap
@@ -173,12 +200,20 @@ def _instance_pose(inst_quats, inst_trans, aux: InstanceAux, view: ViewInputs,
 
 
 def _collect_instances(node: GaussianNodeParams, alive, pose_q, pose_t, gate,
-                       view: ViewInputs):
-    """World-space gaussians of stacked instances, flattened to [I*cap, ...]."""
+                       view: ViewInputs, local_offsets=None):
+    """World-space gaussians of stacked instances, flattened to [I*cap, ...].
+    local_offsets: the deformation MLP's (dxyz [I,cap,3], dquat [I,cap,4],
+    dscale [I,cap,3]), applied in the instance frame."""
     I, cap = node.means.shape[:2]
+    means_l = node.means
     quats_l = quat_normalize(node.quats)
     scales_l = torch.exp(node.scales)
-    means_w = quat_rotate(pose_q[:, None, :], node.means) + pose_t[:, None, :]
+    if local_offsets is not None:
+        dxyz, dquat, dscale = local_offsets
+        means_l = means_l + dxyz
+        quats_l = quat_normalize(quats_l + dquat)
+        scales_l = scales_l * torch.exp(dscale)
+    means_w = quat_rotate(pose_q[:, None, :], means_l) + pose_t[:, None, :]
     quats_w = quat_mult(pose_q[:, None, :], quats_l)
     opac = torch.sigmoid(node.opacities[..., 0]) * alive * gate[:, None]
 
@@ -202,9 +237,14 @@ def collect_gaussians(params: SceneParams, aux: SceneAux, cfg: SceneConfig,
                       view: ViewInputs) -> Dict[str, torch.Tensor]:
     """Concatenate all nodes' world-space gaussians for one view: means
     [N,3], quats [N,4], scales [N,3], opacities [N], colors [N,3]."""
-    if params.deformables is not None or params.wild is not None:
-        raise NotImplementedError(
-            "deformable nodes and WildGaussians appearance are not ported yet")
+    def node_colors(p, dc, rest):
+        if params.wild is not None:
+            # WildGaussians: the image's embedding and the MLP instead of SH
+            # (no degree ramp, no view direction)
+            r3 = rest if rest.ndim == 3 else rest[:, 0]
+            return wild_lib.wild_colors(params.wild, dc, r3, view.image_idx)
+        return _eval_colors(p.means, dc, rest, view.cam_pos, view.sh_mask)
+
     outs = []
     for name in ("background", "skybox"):
         p = getattr(params, name)
@@ -213,13 +253,26 @@ def collect_gaussians(params: SceneParams, aux: SceneAux, cfg: SceneConfig,
         dc, rest = _multicolor_features(p, view.travel_index, cfg.travel_mode)
         outs.append((
             p.means, get_quats(p), get_scales(p), get_opacities(p, getattr(aux, name)),
-            _eval_colors(p.means, dc, rest, view.cam_pos, view.sh_mask),
+            node_colors(p, dc, rest),
         ))
     if params.instances is not None:
         q, t, gate = _instance_pose(params.instances.quats, params.instances.trans,
                                     aux.instances, view, cfg.interp_poses)
         outs.append(_collect_instances(params.instances.node, aux.instances.alive,
                                        q, t, gate, view))
+    if params.deformables is not None:
+        d = params.deformables
+        q, t, gate = _instance_pose(d.quats, d.trans, aux.deformables, view, cfg.interp_poses)
+        node, offsets = d.node, None
+        if cfg.deform_enabled:
+            # the canonical xyz are frozen once deformation starts: no
+            # gradient through the render or the MLP's input (the trainer
+            # also zeroes their Adam update)
+            node = dataclasses.replace(node, means=node.means.detach())
+            offsets = deform_lib.apply_deform(d.mlp, node.means, d.embeddings, view.timestamp,
+                                              xyz_bound=cfg.deform_xyz_bound)
+        outs.append(_collect_instances(node, aux.deformables.alive, q, t, gate, view,
+                                       offsets))
     means, quats, scales, opac, colors = (
         torch.cat([o[i] for o in outs], dim=0) for i in range(5))
     return dict(means=means, quats=quats, scales=scales, opacities=opac, colors=colors)
@@ -229,26 +282,72 @@ def init_scene(
     background: Tuple[GaussianNodeParams, NodeAux],
     skybox: Optional[Tuple[GaussianNodeParams, NodeAux]] = None,
     instances: Optional[Tuple[InstanceParams, InstanceAux]] = None,
+    deformables: Optional[Tuple[DeformableParams, InstanceAux]] = None,
     *,
     num_cameras: int = 1,
     num_images: int = 1,
+    wild_appearance: bool = False,
     device="cuda",
 ) -> Tuple[SceneParams, SceneAux]:
-    """Assemble SceneParams/SceneAux from per-node inits; the appearance
-    and camera-opt leaves on the card unless `device` says otherwise."""
+    """Assemble SceneParams/SceneAux from per-node inits; the appearance,
+    camera-opt and (with wild_appearance) WildGaussians leaves on the card
+    unless `device` says otherwise. The wild weights come from a CPU
+    generator seeded 0, so a scene is the same on the CPU and the card."""
     from mtgs_torch.models.appearance import init_exposure
 
     device = resolve_device(device)
+    wild = None
+    if wild_appearance:
+        wild = wild_lib.init_wild(num_images, generator=torch.Generator().manual_seed(0),
+                                  device=device)
     params = SceneParams(
         background=background[0],
         skybox=None if skybox is None else skybox[0],
         instances=None if instances is None else instances[0],
+        deformables=None if deformables is None else deformables[0],
         appearance=init_exposure(num_cameras, device=device),
         camera_opt=torch.zeros((num_images, 6), dtype=torch.float32, device=device),
+        wild=wild,
     )
     auxs = SceneAux(
         background=background[1],
         skybox=None if skybox is None else skybox[1],
         instances=None if instances is None else instances[1],
+        deformables=None if deformables is None else deformables[1],
     )
     return params, auxs
+
+
+# ------------------------------------------------------------- scene edit
+
+def _instance_block(params: SceneParams, deformable: bool):
+    field = "deformables" if deformable else "instances"
+    block = getattr(params, field)
+    if block is None:
+        raise ValueError(f"scene has no {field}")
+    return field, block
+
+
+def translate_instance(params: SceneParams, instance: int, offset, *,
+                       deformable: bool = False) -> SceneParams:
+    """A copy of `params` with one rigid (or deformable) instance moved by
+    `offset` (world frame) in every frame: the per-frame world pose moves,
+    the local means stay."""
+    field, block = _instance_block(params, deformable)
+    off = torch.as_tensor(offset, dtype=torch.float32, device=block.trans.device).reshape(3)
+    trans = block.trans.detach().clone()
+    trans[instance] += off
+    return dataclasses.replace(params, **{field: dataclasses.replace(block, trans=trans)})
+
+
+def rotate_instance(params: SceneParams, instance: int, quat, *,
+                    deformable: bool = False) -> SceneParams:
+    """A copy of `params` with one instance rotated about its own origin by
+    `quat` (wxyz) in every frame: the per-frame pose rotation is
+    pre-multiplied, the translations stay."""
+    field, block = _instance_block(params, deformable)
+    q = quat_normalize(torch.as_tensor(quat, dtype=torch.float32,
+                                       device=block.quats.device).reshape(4))
+    quats = block.quats.detach().clone()
+    quats[instance] = quat_mult(q[None, :], quats[instance])
+    return dataclasses.replace(params, **{field: dataclasses.replace(block, quats=quats)})

@@ -1,0 +1,67 @@
+"""WildGaussians-style appearance: a per-image embedding and a colour MLP;
+port of `mtgs_tpu/models/wild.py`.
+
+A per-train-image 32-d embedding, concatenated with each gaussian's base
+colour and its first 24 flattened SH-rest values, goes through a 3-layer
+MLP that outputs a per-gaussian colour offset and multiplier:
+`color = rgb * (1 + mul) + offset`, both scaled by 0.01 and not clamped.
+The WildGaussians preset uses it on the multicolour nodes instead of the
+view-dependent SH colour.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from mtgs_torch import resolve_device
+from mtgs_torch.core.sh import sh_to_rgb
+
+EMBED_DIM = 32
+HIDDEN = 128
+IN_DIM = EMBED_DIM + 3 + 6 * 4  # embedding + rgb + 24 rest values
+
+
+@dataclass
+class WildAppearanceParams:
+    embeddings: torch.Tensor   # [num_images, EMBED_DIM]
+    w1: torch.Tensor           # [IN_DIM, HIDDEN]
+    b1: torch.Tensor
+    w2: torch.Tensor           # [HIDDEN, HIDDEN]
+    b2: torch.Tensor
+    w3: torch.Tensor           # [HIDDEN, 6]
+    b3: torch.Tensor
+
+
+def init_wild(num_images: int, *, generator: torch.Generator,
+              device="cuda") -> WildAppearanceParams:
+    """Embeddings normal * 0.01, He-normal hidden layers, a near-zero head
+    (normal * 1e-3), zero biases; drawn from `generator` on its own device
+    and placed on `device` (the card unless it says otherwise)."""
+    dev = resolve_device(device)
+    normal = lambda *shape: torch.randn(shape, generator=generator,
+                                        device=generator.device).to(dev)
+    zeros = lambda n: torch.zeros((n,), dtype=torch.float32, device=dev)
+    return WildAppearanceParams(
+        embeddings=normal(num_images, EMBED_DIM) * 0.01,
+        w1=normal(IN_DIM, HIDDEN) * math.sqrt(2.0 / IN_DIM), b1=zeros(HIDDEN),
+        w2=normal(HIDDEN, HIDDEN) * math.sqrt(2.0 / HIDDEN), b2=zeros(HIDDEN),
+        w3=normal(HIDDEN, 6) * 1e-3, b3=zeros(6),
+    )
+
+
+def wild_colors(params: WildAppearanceParams, features_dc: torch.Tensor,
+                features_rest: torch.Tensor, image_idx) -> torch.Tensor:
+    """Per-gaussian colours [N, 3] with the image's appearance MLP applied:
+    features_dc [N, 3], features_rest [N, K-1, 3], image_idx the image row."""
+    rgb = torch.clamp(sh_to_rgb(features_dc), 0.0, 1.0)
+    rest = features_rest.reshape(features_rest.shape[0], -1)[:, :24]
+    emb = params.embeddings[image_idx].expand(rgb.shape[0], EMBED_DIM)
+    x = torch.cat([rgb, rest, emb], dim=-1)
+    h = torch.relu(x @ params.w1 + params.b1)
+    h = torch.relu(h @ params.w2 + params.b2)
+    out = (h @ params.w3 + params.b3) * 0.01
+    offset, mul = out[:, :3], out[:, 3:]
+    return rgb * (1.0 + mul) + offset

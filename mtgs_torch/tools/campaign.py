@@ -146,7 +146,8 @@ def node_caps(params):
         skybox=None if params.skybox is None else params.skybox.capacity,
         instances=None if params.instances is None
         else int(params.instances.node.means.shape[1]),
-        deformables=None,
+        deformables=None if params.deformables is None
+        else int(params.deformables.node.means.shape[1]),
     )
 
 

@@ -9,8 +9,9 @@ and, unless stripped, the optimizer state (Adam's moments and count). Like
 JAX's, it carries no generator state: a rebuilt `Trainer` re-seeds its
 refine generator. The format is torch-native: a checkpoint is a
 directory holding one `torch.save` file of nested dicts, one level per
-dataclass field, so a leaf's dotted path in it is its
-`optim.named_leaves` name; an absent node is None, the step an int. It is
+dataclass field (a tuple, such as the deform MLP's `w`, is a dict keyed
+"0", "1", ..., as in flax's state dicts), so a leaf's dotted path in it is
+its `optim.named_leaves` name; an absent node is None, the step an int. It is
 read back with `torch.load(weights_only=True)`.
 
 `load_checkpoint` restores into a template's structure and device and
@@ -50,11 +51,14 @@ def payload_path(path) -> Path:
 
 
 def _to_tree(x):
-    """A dataclass / dict tree as nested dicts of CPU tensors, ints and None."""
+    """A dataclass / dict / tuple tree as nested dicts of CPU tensors, ints
+    and None."""
     if x is None or isinstance(x, (bool, int, float)):
         return x
     if isinstance(x, torch.Tensor):
         return x.detach().cpu()
+    if isinstance(x, tuple):
+        return {str(i): _to_tree(v) for i, v in enumerate(x)}
     if dataclasses.is_dataclass(x):
         return {f.name: _to_tree(getattr(x, f.name)) for f in dataclasses.fields(x)}
     if isinstance(x, dict):
@@ -79,16 +83,20 @@ def _from_tree(saved, template, where: str):
         return saved.to(template.device)
     if isinstance(template, (bool, int, float)):
         return type(template)(saved)
-    fields = ([f.name for f in dataclasses.fields(template)]
-              if dataclasses.is_dataclass(template) else list(template))
-    if not isinstance(saved, dict) or set(saved) != set(fields):
+    if dataclasses.is_dataclass(template):
+        items = {f.name: getattr(template, f.name) for f in dataclasses.fields(template)}
+    elif isinstance(template, tuple):
+        items = {str(i): v for i, v in enumerate(template)}
+    else:
+        items = template
+    if not isinstance(saved, dict) or set(saved) != set(items):
         raise ValueError(f"{where}: the checkpoint's keys "
                          f"{sorted(saved) if isinstance(saved, dict) else saved!r} are not "
-                         f"the template's {sorted(fields)}")
-    out = {k: _from_tree(saved[k], (getattr(template, k) if dataclasses.is_dataclass(template)
-                                    else template[k]), f"{where}.{k}" if where else k)
-           for k in fields}
-    return dataclasses.replace(template, **out) if dataclasses.is_dataclass(template) else out
+                         f"the template's {sorted(items)}")
+    out = {k: _from_tree(saved[k], t, f"{where}.{k}" if where else k) for k, t in items.items()}
+    if dataclasses.is_dataclass(template):
+        return dataclasses.replace(template, **out)
+    return tuple(out.values()) if isinstance(template, tuple) else out
 
 
 def save_checkpoint(path, state, aux, *, keep_optimizer: bool = True) -> None:
@@ -138,12 +146,13 @@ def checkpoint_layout(path) -> Dict[str, Any]:
     "has_optimizer"}."""
     saved = _read(path)
     params = saved["params"]
-    inst = params.get("instances")
+    stacked = lambda block: None if block is None else int(block["node"]["means"].shape[1])
     caps = dict(
         background=int(params["background"]["means"].shape[0]),
         skybox=None if params.get("skybox") is None
         else int(params["skybox"]["means"].shape[0]),
-        instances=None if inst is None else int(inst["node"]["means"].shape[1]),
+        instances=stacked(params.get("instances")),
+        deformables=stacked(params.get("deformables")),
     )
     return dict(caps=caps, step=int(saved["step"]), has_optimizer="opt_state" in saved)
 
@@ -174,15 +183,12 @@ def pad_scene_to_caps(params, aux, caps: Dict[str, Optional[int]]):
     if c is not None and params.skybox is not None and c != params.skybox.capacity:
         params = rep(params, skybox=pad_node(params.skybox, c, 0))
         aux = rep(aux, skybox=rep(aux.skybox, alive=_pad_axis(aux.skybox.alive, c, 0)))
-    c = caps.get("instances")
-    if (c is not None and params.instances is not None
-            and c != params.instances.node.means.shape[1]):
-        params = rep(params, instances=rep(params.instances,
-                                           node=pad_node(params.instances.node, c, 1)))
-        aux = rep(aux, instances=rep(aux.instances,
-                                     alive=_pad_axis(aux.instances.alive, c, 1)))
-    if caps.get("deformables") is not None and params.deformables is not None:
-        raise NotImplementedError("deformable nodes are not ported yet")
+    for kind in ("instances", "deformables"):  # stacked: capacity on axis 1
+        c, block = caps.get(kind), getattr(params, kind)
+        if c is not None and block is not None and c != block.node.means.shape[1]:
+            params = rep(params, **{kind: rep(block, node=pad_node(block.node, c, 1))})
+            a = getattr(aux, kind)
+            aux = rep(aux, **{kind: rep(a, alive=_pad_axis(a.alive, c, 1))})
     return params, aux
 
 
@@ -340,6 +346,6 @@ def scene_from_torch_checkpoint(path, *, num_cameras: int = 8,
                   if camera_opt is None
                   else torch.as_tensor(camera_opt, dtype=torch.float32, device=dev))
     params = SceneParams(background=bg_p, skybox=sky_p, instances=inst_params,
-                         appearance=appearance, camera_opt=camera_opt)
+                         deformables=None, appearance=appearance, camera_opt=camera_opt)
     aux = SceneAux(background=bg_a, skybox=sky_a, instances=inst_aux)
     return params, aux, out["step"]

@@ -11,7 +11,8 @@ and one global `count` drives both bias correction and the schedules (as
 optax's two counters, which advance together). `adam_update` writes the
 parameters and moments in place, which saves a copy of each; a step with
 a non-finite gradient leaves all of them, the count included, as they
-were.
+were, and a path in its `frozen` set keeps its value while its moments
+advance (the canonical means of deforming nodes).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Collection, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -91,12 +92,17 @@ class OptimConfig:
 
 def named_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
     """(dotted path, tensor) of every tensor of a dataclass tree, in field
-    order (the order of `jax.tree.leaves` on the JAX pytree); None fields
+    order (the order of `jax.tree.leaves` on the JAX pytree); a tuple's
+    items are named by their index (`deformables.mlp.w.0`); None fields
     are skipped."""
     if tree is None:
         return
     if isinstance(tree, torch.Tensor):
         yield prefix, tree
+        return
+    if isinstance(tree, tuple):
+        for i, x in enumerate(tree):
+            yield from named_leaves(x, f"{prefix}.{i}")
         return
     for f in dataclasses.fields(tree):
         yield from named_leaves(getattr(tree, f.name), f"{prefix}.{f.name}" if prefix else f.name)
@@ -108,6 +114,8 @@ def tree_map(fn, tree, *rest):
         return None
     if isinstance(tree, torch.Tensor):
         return fn(tree, *rest)
+    if isinstance(tree, tuple):
+        return tuple(tree_map(fn, x, *(r[i] for r in rest)) for i, x in enumerate(tree))
     return dataclasses.replace(tree, **{
         f.name: tree_map(fn, getattr(tree, f.name), *(getattr(r, f.name) for r in rest))
         for f in dataclasses.fields(tree)})
@@ -133,6 +141,16 @@ def param_labels(params: SceneParams) -> Dict[str, str]:
     if params.instances is not None:
         labels.update(_node_labels("instances.node", params.instances.node.multicolor))
         labels.update({"instances.quats": "ins_rotation", "instances.trans": "ins_translation"})
+    if params.deformables is not None:
+        # the deformable node takes the mono-colour labels whatever its shape
+        labels.update(_node_labels("deformables.node", False))
+        labels.update({"deformables.quats": "ins_rotation",
+                       "deformables.trans": "ins_translation",
+                       "deformables.embeddings": "embeddings"})
+        labels.update({path: "deform_network"
+                       for path, _ in named_leaves(params.deformables.mlp, "deformables.mlp")})
+    if params.wild is not None:
+        labels.update({path: "appearance" for path, _ in named_leaves(params.wild, "wild")})
     return {path: labels[path] for path, _ in named_leaves(params)}
 
 
@@ -154,12 +172,14 @@ def adam_init(params: SceneParams) -> AdamState:
 
 @torch.no_grad()
 def adam_update(params: SceneParams, grads: Dict[str, torch.Tensor], state: AdamState,
-                config: OptimConfig, finite: torch.Tensor) -> None:
+                config: OptimConfig, finite: torch.Tensor,
+                frozen: Collection[str] = ()) -> None:
     """One Adam step in place (optax.scale_by_adam, then -lr of the leaf's
     group at the step count). `finite` is a 0-d bool tensor: where it is
     false the gradients are taken as zero and params, moments and count
     all keep their values; it is read on the device, so the step needs no
-    host sync."""
+    host sync. The leaves named in `frozen` get a zero update; their
+    moments advance as any other's."""
     labels = param_labels(params)
     scheds = {k: v.schedule() for k, v in config.groups.items()}
     lrs = {k: scheds[k](state.count) for k in set(labels.values())}
@@ -174,7 +194,8 @@ def adam_update(params: SceneParams, grads: Dict[str, torch.Tensor], state: Adam
         mu_new = (1.0 - config.b1) * g + config.b1 * mu
         nu_new = (1.0 - config.b2) * (g * g) + config.b2 * nu
         u = -lrs[labels[path]] * ((mu_new / bc1) / (torch.sqrt(nu_new / bc2) + config.eps))
-        p.add_(torch.where(finite, u, 0.0))
+        if path not in frozen:
+            p.add_(torch.where(finite, u, 0.0))
         mu.copy_(torch.where(finite, mu_new, mu))
         nu.copy_(torch.where(finite, nu_new, nu))
     state.count += finite.to(torch.int32)

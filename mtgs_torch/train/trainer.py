@@ -13,11 +13,14 @@
   opacity reset, with `max_intersections` grown past `isect_grow_frac`;
   optionally the multi-resolution ladder (`resolution_stages` with a
   `data_factory`), which switches the render size, the intersection
-  buffer and the data at each stage boundary.
+  buffer and the data at each stage boundary; and at
+  `deform_enable_step` the one-time switch that makes the deformable
+  nodes' MLP live and freezes their canonical means.
 
-Nothing is re-jitted at a stage switch or a capacity growth: torch keeps
-shapes dynamic, so the JAX package's re-jit and speculative compile have
-no counterpart; its mesh and deformable machinery is not ported yet.
+Nothing is re-jitted at a stage switch, a capacity growth or the
+deformation switch: torch keeps shapes dynamic, so the JAX package's
+re-jit and speculative compile have no counterpart; its mesh machinery is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -46,6 +49,10 @@ from mtgs_torch.train.optim import (
 )
 
 
+# the stacked node kinds: a leading instance axis, refined one instance at a time
+STACKED = ("instances", "deformables")
+
+
 @dataclass(frozen=True)
 class TrainerConfig:
     """The JAX TrainerConfig's fields that the port runs (same defaults)."""
@@ -70,10 +77,14 @@ class TrainerConfig:
     isect_grow_factor: float = 1.5
     loss: loss_lib.LossConfig = field(default_factory=loss_lib.LossConfig)
     control: ctrl.ControlConfig = field(default_factory=ctrl.ControlConfig)
+    # the step from which the deformable nodes deform (their canonical xyz
+    # frozen from then on); None: never
+    deform_enable_step: Optional[int] = None
     # per-node control overrides (None: inherit `control`; the skybox
     # then gets no far-background cull exemption)
     skybox_control: Optional[ctrl.ControlConfig] = None
     instances_control: Optional[ctrl.ControlConfig] = None
+    deformables_control: Optional[ctrl.ControlConfig] = None
     scene: SceneConfig = field(default_factory=SceneConfig)
 
     def node_control(self, node: str) -> ctrl.ControlConfig:
@@ -84,6 +95,8 @@ class TrainerConfig:
             return dataclasses.replace(self.control, far_dist=1e8, far_scale_factor=1.0)
         if node == "instances":
             return self.instances_control or self.control
+        if node == "deformables":
+            return self.deformables_control or self.control
         return self.control
 
     def raster_config(self) -> RasterizeConfig:
@@ -280,7 +293,8 @@ def loss_and_grads(params: SceneParams, aux: SceneAux, cfg: TrainerConfig, batch
 def _accumulate_all(params: SceneParams, densify: Dict[str, ctrl.DensifyState], sink_grad,
                     radii, opac, wh, comps=None) -> Dict[str, ctrl.DensifyState]:
     """Route each node's slice of absgrad / radii / compensations into its
-    densify statistics; stacked instances are one batched update."""
+    densify statistics; each stacked block (rigid, deformable) is one
+    batched update."""
     new = dict(densify)
     segs = node_segments(params)
     for name, s, e in segs:
@@ -288,13 +302,15 @@ def _accumulate_all(params: SceneParams, densify: Dict[str, ctrl.DensifyState], 
             new[name] = ctrl.accumulate_stats(
                 densify[name], sink_grad[s:e], radii[s:e], opac[s:e], wh,
                 None if comps is None else comps[s:e])
-    inst = [(s, e) for name, s, e in segs if name.startswith("instance_")]
-    if inst:
-        s0, e1 = inst[0][0], inst[-1][1]
-        n_inst = len(inst)
+    for kind, row in (("instances", "instance_"), ("deformables", "deformable_")):
+        block = [(s, e) for name, s, e in segs if name.startswith(row)]
+        if not block:
+            continue
+        s0, e1 = block[0][0], block[-1][1]
+        n_inst = len(block)
         cap = (e1 - s0) // n_inst
-        new["instances"] = ctrl.accumulate_stats(
-            densify["instances"], sink_grad[s0:e1].reshape(n_inst, cap, 2),
+        new[kind] = ctrl.accumulate_stats(
+            densify[kind], sink_grad[s0:e1].reshape(n_inst, cap, 2),
             radii[s0:e1].reshape(n_inst, cap), opac[s0:e1].reshape(n_inst, cap), wh,
             None if comps is None else comps[s0:e1].reshape(n_inst, cap))
     return new
@@ -305,9 +321,10 @@ def _make_densify(params: SceneParams) -> Dict[str, ctrl.DensifyState]:
     densify = {"background": ctrl.DensifyState.zeros(params.background.capacity, dev)}
     if params.skybox is not None:
         densify["skybox"] = ctrl.DensifyState.zeros(params.skybox.capacity, dev)
-    if params.instances is not None:
-        densify["instances"] = ctrl.DensifyState.zeros(
-            tuple(params.instances.node.means.shape[:2]), dev)
+    for kind in STACKED:
+        block = getattr(params, kind)
+        if block is not None:
+            densify[kind] = ctrl.DensifyState.zeros(tuple(block.node.means.shape[:2]), dev)
     return densify
 
 
@@ -328,7 +345,13 @@ def train_step(state: TrainState, aux: SceneAux, cfg: TrainerConfig, batch: Batc
     # optimizer state as they were and is counted in the metrics
     finite = torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
     sink_grad = torch.where(finite, sink_grad, 0.0)
-    adam_update(state.params, grads, state.adam, optim_config, finite)
+    # while deformation is on, the canonical xyz keep their values: their
+    # gradient is already zero, and a zero update stops Adam's momentum
+    # from drifting them
+    frozen = ()
+    if cfg.scene.deform_enabled and state.params.deformables is not None:
+        frozen = ("deformables.node.means",)
+    adam_update(state.params, grads, state.adam, optim_config, finite, frozen)
     state.densify = _accumulate_all(
         state.params, state.densify, sink_grad, out["radii"], out["gaussians"]["opacities"],
         (cfg.width, cfg.height), comps=out["compensations"])
@@ -340,6 +363,8 @@ def train_step(state: TrainState, aux: SceneAux, cfg: TrainerConfig, batch: Batc
     metrics["total_loss"] = total
     metrics["nonfinite_grad_step"] = (~finite).to(torch.float32)
     metrics["n_intersections"] = out["n_intersections"].reshape(())
+    # the JAX package's count: background, skybox and rigid instances (the
+    # deformables are left out)
     count = aux.background.alive.sum()
     if aux.skybox is not None:
         count = count + aux.skybox.alive.sum()
@@ -399,15 +424,16 @@ class Trainer:
 
     def _nodes(self):
         """(kind, params node, aux node, densify) of every node kind;
-        stacked instances as one [I, cap] node."""
+        each stacked block (rigid, deformable) as one [I, cap] node."""
         p, a, d = self.state.params, self.aux, self.state.densify
         nodes = [("background", p.background, a.background, d["background"])]
         if p.skybox is not None:
             nodes.append(("skybox", p.skybox, a.skybox, d["skybox"]))
-        if p.instances is not None:
-            nodes.append(("instances", p.instances.node,
-                          NodeAux(alive=a.instances.alive, num_alive=a.instances.num_alive),
-                          d["instances"]))
+        for kind in STACKED:
+            block, ba = getattr(p, kind), getattr(a, kind)
+            if block is not None:
+                nodes.append((kind, block.node,
+                              NodeAux(alive=ba.alive, num_alive=ba.num_alive), d[kind]))
         return nodes
 
     @torch.no_grad()
@@ -420,7 +446,7 @@ class Trainer:
         caps = {}
         for kind, node, aux, dstate in self._nodes():
             cc = self.cfg.node_control(kind)
-            if kind == "instances":
+            if kind in STACKED:
                 n_inst = node.means.shape[0]
                 needed = max(int(ctrl.count_refine_candidates(
                     _node_slice(node, i), _node_slice(aux, i), _node_slice(dstate, i), cc,
@@ -473,23 +499,28 @@ class Trainer:
             nu = dataclasses.replace(nu, skybox=r.nu)
             aux = dataclasses.replace(aux, skybox=r.aux)
             st.densify["skybox"] = r.state
-        if params.instances is not None:
-            ia = aux.instances
-            outs = [run("instances", _node_slice(params.instances.node, i),
+        # stacked blocks refine one instance at a time (the canonical means
+        # sampled on a deformable split stay canonical)
+        for kind in STACKED:
+            block = getattr(params, kind)
+            if block is None:
+                continue
+            ia, mb, nb = getattr(aux, kind), getattr(mu, kind), getattr(nu, kind)
+            outs = [run(kind, _node_slice(block.node, i),
                         NodeAux(alive=ia.alive[i], num_alive=ia.num_alive[i]),
-                        _node_slice(mu.instances.node, i), _node_slice(nu.instances.node, i),
-                        _node_slice(st.densify["instances"], i))
-                    for i in range(params.instances.node.means.shape[0])]
-            params = dataclasses.replace(params, instances=dataclasses.replace(
-                params.instances, node=stack_nodes([o.params for o in outs])))
-            mu = dataclasses.replace(mu, instances=dataclasses.replace(
-                mu.instances, node=stack_nodes([o.mu for o in outs])))
-            nu = dataclasses.replace(nu, instances=dataclasses.replace(
-                nu.instances, node=stack_nodes([o.nu for o in outs])))
-            aux = dataclasses.replace(aux, instances=dataclasses.replace(
+                        _node_slice(mb.node, i), _node_slice(nb.node, i),
+                        _node_slice(st.densify[kind], i))
+                    for i in range(block.node.means.shape[0])]
+            params = dataclasses.replace(params, **{kind: dataclasses.replace(
+                block, node=stack_nodes([o.params for o in outs]))})
+            mu = dataclasses.replace(mu, **{kind: dataclasses.replace(
+                mb, node=stack_nodes([o.mu for o in outs]))})
+            nu = dataclasses.replace(nu, **{kind: dataclasses.replace(
+                nb, node=stack_nodes([o.nu for o in outs]))})
+            aux = dataclasses.replace(aux, **{kind: dataclasses.replace(
                 ia, alive=torch.stack([o.aux.alive for o in outs]),
-                num_alive=torch.stack([o.aux.num_alive for o in outs])))
-            st.densify["instances"] = stack_nodes([o.state for o in outs])
+                num_alive=torch.stack([o.aux.num_alive for o in outs]))})
+            st.densify[kind] = stack_nodes([o.state for o in outs])
         st.params = params
         st.adam = dataclasses.replace(st.adam, mu=mu, nu=nu)
         self.aux = aux
@@ -511,14 +542,16 @@ class Trainer:
             params = dataclasses.replace(params, **{kind: p})
             mu = dataclasses.replace(mu, **{kind: m})
             nu = dataclasses.replace(nu, **{kind: v})
-        if params.instances is not None:
-            p, m, v = ctrl.reset_opacities(params.instances.node, mu.instances.node,
-                                           nu.instances.node, cc,
-                                           st.densify["instances"].last_comp)
-            params = dataclasses.replace(params, instances=dataclasses.replace(
-                params.instances, node=p))
-            mu = dataclasses.replace(mu, instances=dataclasses.replace(mu.instances, node=m))
-            nu = dataclasses.replace(nu, instances=dataclasses.replace(nu.instances, node=v))
+        for kind in STACKED:
+            block = getattr(params, kind)
+            if block is None:
+                continue
+            mb, nb = getattr(mu, kind), getattr(nu, kind)
+            p, m, v = ctrl.reset_opacities(block.node, mb.node, nb.node, cc,
+                                           st.densify[kind].last_comp)
+            params = dataclasses.replace(params, **{kind: dataclasses.replace(block, node=p)})
+            mu = dataclasses.replace(mu, **{kind: dataclasses.replace(mb, node=m)})
+            nu = dataclasses.replace(nu, **{kind: dataclasses.replace(nb, node=v)})
         st.params = params
         st.adam = dataclasses.replace(st.adam, mu=mu, nu=nu)
 
@@ -545,15 +578,22 @@ class Trainer:
 
     def train(self, num_steps: int, log_every: int = 100, callback=None):
         """Run `num_steps` steps; refine and reset on the reference's
-        schedule, switching ladder stages at their start steps. Returns the
-        per-step metrics (device tensors). `loop_stats` holds this call's
-        host seconds of step dispatch, refine (with its syncs) and the
-        callback's metric syncs, and its step count."""
+        schedule, switching ladder stages at their start steps and turning
+        deformation on at deform_enable_step (at once on a resume past
+        it). Returns the per-step metrics (device tensors). `loop_stats`
+        holds this call's host seconds of step dispatch, refine (with its
+        syncs) and the callback's metric syncs, and its step count."""
         cc = self.cfg.control
         history = []
         self.loop_stats = dict(dispatch_s=0.0, refine_s=0.0, sync_s=0.0, steps=0)
         for i in range(num_steps):
             step = self.state.step
+            if (self.cfg.deform_enable_step is not None and not self.cfg.scene.deform_enabled
+                    and step >= self.cfg.deform_enable_step
+                    and self.state.params.deformables is not None):
+                # the one-time switch, also in the base config the ladder scales
+                on = lambda c: c.replace(scene=dataclasses.replace(c.scene, deform_enabled=True))
+                self.cfg, self._base_cfg = on(self.cfg), on(self._base_cfg)
             if self.resolution_stages is not None:
                 scale = self.resolution_stages[0][1]
                 for start, s in self.resolution_stages:

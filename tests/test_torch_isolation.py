@@ -184,8 +184,14 @@ def test_campaign_entry_points_raise_without_a_card(no_card, tmp_path):
     assert not (tmp_path / "run").exists()
     with pytest.raises(KeyError, match="mtgs"):
         configs.method_config("nerf")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        configs.method_config("wild_gaussians")
+    # the deformable and WildGaussians presets are the mtgs preset, the first
+    # with deformation switched on at the reference's absolute step
+    # (test_torch_train_scene.py holds all four against JAX's, field by field)
+    mtgs = configs.method_config("mtgs", max_steps=200)
+    assert configs.method_config("wild_gaussians", max_steps=200) == mtgs
+    assert configs.method_config("mtgs_deformable", max_steps=200) == mtgs.replace(
+        deform_enable_step=3000)
+    assert configs.DEFORM_ENABLE_STEP == 3000 and not mtgs.scene.deform_enabled
     assert configs.method_config("3dgs").rasterize_mode == "classic"
 
 

@@ -140,8 +140,18 @@ def test_build_scene_model_matches_jax(shared):
             assert g[k].shape == w[k].shape and g[k].dtype == w[k].dtype, k
             torch.testing.assert_close(g[k], w[k], rtol=1e-6, atol=1e-6, msg=k)
     assert got_p.background.features_rest.shape[1] == 2   # per-traversal SH rest
-    with pytest.raises(NotImplementedError):
-        ts.build_scene_model(port_scene, wild_appearance=True, device="cpu")
+    # WildGaussians: the same leaves; the wild ones by shape and dtype only
+    # (the packages' generators differ)
+    jp, ja = js.build_scene_model(_jax_scene(port_scene), wild_appearance=True, **kw)
+    want_p, _ = scene_from_state_dict(sd(jp), sd(ja), device="cpu")
+    got_p, _ = ts.build_scene_model(port_scene, wild_appearance=True, device="cpu", **kw)
+    g, w = dict(named_leaves(got_p)), dict(named_leaves(want_p))
+    assert list(g) == list(w) and "wild.embeddings" in w
+    assert w["wild.embeddings"].shape == (port_scene.frame_rows, 32)
+    for k in w:
+        assert g[k].shape == w[k].shape and g[k].dtype == w[k].dtype, k
+        if not k.startswith("wild."):
+            torch.testing.assert_close(g[k], w[k], rtol=1e-6, atol=1e-6, msg=k)
 
 
 def test_batch_iterator_order_matches_jax(shared):

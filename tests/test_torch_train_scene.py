@@ -115,7 +115,7 @@ def test_build_model_from_parsed_matches_jax(block, split):
                                rtol=1e-6)
 
 
-@pytest.mark.parametrize("method", ["mtgs", "3dgs"])
+@pytest.mark.parametrize("method", ["mtgs", "3dgs", "mtgs_deformable", "wild_gaussians"])
 def test_method_presets_match_jax(method):
     """Every field of the port's preset that the JAX preset also has, the
     nested loss, control and scene configs included, is JAX's."""
