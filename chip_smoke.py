@@ -10,17 +10,19 @@ made from `--seed`: serving (`scene_from_state_dict` -> `evaluate_scene`
 render tool at nuPlan's 1920x1080 (`tools.render.render_camera_path`),
 training across the capacity growth that leaves the fused path, the
 training campaign (`tools.campaign.main`), a nuPlan road block through
-`tools.train_scene.main` with the port's own JPEG and PNG decoders, and the
-deformable and WildGaussians presets on the campaign's scene; and holds
+`tools.train_scene.main` with the port's own JPEG and PNG decoders, the
+road block's eval with LPIPS and DINOv2 scoring and its image and gaussian
+export, and the deformable and WildGaussians presets on the campaign's
+scene; and holds
 the seven hand-written CUDA kernels (`csrc/expand_fused.cu`,
 `csrc/blend_forward.cu`, `csrc/blend_backward.cu`, `csrc/segment_sum.cu`,
 `csrc/expand_pairs.cu`, the two of `csrc/transpose.cu`) against their
 plain PyTorch versions. Phases, each of which raises on failure:
 
   1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA;
-  2. build: the six kernel sources compiled with nvcc for sm_90a and the
-     image decoders (`csrc/image_decode.cc`) with the host compiler, in
-     parallel;
+  2. build: the six kernel sources compiled with nvcc for sm_90a, the
+     image decoders (`csrc/image_decode.cc`) and the JPEG encoder
+     (`csrc/image_encode.cc`) with the host compiler, in parallel;
   3. goldens: the kernel path's rasterize on the four gsplat-math goldens
      in tests/goldens/ (render 2e-3, alpha 1e-3);
   4. main path: the scene in the JAX state-dict layout, carried across
@@ -126,6 +128,26 @@ plain PyTorch versions. Phases, each of which raises on failure:
      the kernel forward blend on both sides, as phase 10), the eval, and
      a checkpoint reloaded into a freshly built model padded to its
      capacities repeating it within 1e-6; ms per step beside phase 10's;
+  13. eval and export, on phase 11's trained run:
+     seeded LPIPS-Alex and DINOv2 ViT-B/14 weights at the published widths
+     written under build/chip_smoke/ and named by MTGS_LPIPS_WEIGHTS /
+     MTGS_DINOV2_WEIGHTS for this phase only (phases 11 and 12 find none and
+     score neither); `eval_setup`, then `evaluate_scene` with both metrics
+     on over the held-out traversal and `export_eval_images` in its three
+     modes (`nuplan` re-distorted to the raw 1920x1080 CAM_F0), the launch
+     counters zeroed just before and read just after: the two forward
+     kernels once per view of each; lpips and dinov2_sim finite, every
+     other key within 1e-6 of an eval with both off; both forwards at one
+     view on the card against the CPU (LPIPS rel 1e-4 / abs 1e-6, patch
+     tokens atol 2e-4 / rtol 1e-3), lpips(x, x) = 0 and dinov2_sim(x, x) =
+     1 within 1e-5; every written JPEG decoded by the port's decoder to the
+     expected shape with PSNR >= 30 dB against its array, the raw-image
+     symlinks resolving; `write_jpeg`'s bytes against PIL's SHA-256
+     manifest (tests/fixtures/jpeg_manifest.json); the trained background
+     through tools/export.py (.ply read back exactly); times of LPIPS and
+     DINOv2 per view (CUDA events), the crop's host ms, `write_jpeg` per
+     1920x1080 frame, `redistort_image` per frame, export s per 1e5
+     gaussians;
   5. kernels: each kernel against its plain version, the fused forward two
      at the shapes of one serving view, the backward two at those of one
      training step (both blends also on the faint scene of one more
@@ -164,6 +186,7 @@ import importlib.util
 import io
 import itertools
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -180,8 +203,10 @@ from mtgs_torch.data import image_io, loader as data_loader
 from mtgs_torch.data.dataset import SampleConfig, load_sample, undistort_image
 from mtgs_torch.data.nuplan import parse_scene
 from mtgs_torch.data.synthetic import build_scene_model
+from mtgs_torch.eval import dinov2 as dinov2_mod
+from mtgs_torch.eval import lpips as lpips_mod
 from mtgs_torch.eval.metrics import masked_psnr
-from mtgs_torch.eval.pipeline import EvalConfig, evaluate_scene
+from mtgs_torch.eval.pipeline import EvalConfig, evaluate_scene, export_eval_images
 from mtgs_torch.models.convert import scene_from_state_dict
 from mtgs_torch.models.deform import init_deform_mlp
 from mtgs_torch.models.gaussians import init_skybox_node, node_capacity
@@ -195,6 +220,7 @@ from mtgs_torch.raster.chunk_math import (
 )
 from mtgs_torch.raster.expand_fused import fused_fits
 from mtgs_torch.tools import campaign, train_scene
+from mtgs_torch.tools import export as gaussian_export
 from mtgs_torch.tools import render as render_tool
 from mtgs_torch.train import checkpoint
 from mtgs_torch.train.optim import named_leaves
@@ -251,6 +277,13 @@ INTERP_HZ = 6.0          # render_interpolated: 4 frames at 2 Hz become 10
 DEFORM_STEPS = 300       # phase 12: steps of each preset on phase 10's scene
 DEFORM_ENABLE = 150      # the deformation switch (the preset's absolute 3000, cut in depth)
 DEFORM_SEED = 12         # the deform MLP's generator
+EVAL_EXPORT_SEED = 13    # phase 13: the seeded LPIPS and DINOv2 weights
+EVAL_EXPORT_TOL = 1e-6   # phase 13: the other metrics with LPIPS and DINOv2 on, against off
+LPIPS_TOL = dict(rel=1e-4, abs=1e-6)    # phase 13: the card's LPIPS against the CPU's
+DINOV2_TOL = dict(atol=2e-4, rtol=1e-3)  # phase 13: the card's patch tokens against the CPU's
+SELF_TOL = 1e-5          # phase 13: lpips(x, x) = 0 and dinov2_sim(x, x) = 1
+EXPORT_PSNR_MIN = 30.0   # phase 13: a written JPEG against the uint8 array it encodes
+VITB = dict(D=768, heads=12, layers=12, hidden=3072, patch=14, grid=37)  # DINOv2 ViT-B/14
 # the training start: the scene's alive rows jittered by these standard deviations
 JITTER = dict(means=0.05, features_dc=0.3, opacities=0.5)
 
@@ -695,16 +728,16 @@ def phase_card():
 
 
 def phase_build():
-    """The six kernel sources (one nvcc each) and the image decoders (the
-    host compiler), all at once."""
+    """The six kernel sources (one nvcc each), the image decoders and the
+    JPEG encoder (the host compiler), all at once."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as ex:
+    with ThreadPoolExecutor(2) as ex:
         decoders = ex.submit(image_io.build)
+        encoder = ex.submit(image_io.build, image_io.ENCODE_SOURCE)
         libs = cuda_build.build()
-        decoder_lib = decoders.result()
+        host_libs = [decoders.result(), encoder.result()]
     secs = time.perf_counter() - t0
-    log(f"# build: {', '.join(p.name for p in libs.values())}, {decoder_lib.name} in "
-        f"{secs:.1f} s")
+    log(f"# build: {', '.join(p.name for p in [*libs.values(), *host_libs])} in {secs:.1f} s")
     return secs
 
 
@@ -1728,17 +1761,20 @@ def phase_nuplan(card: str, dev):
     above the untrained one; `eval_setup` + `evaluate_scene` repeating
     eval_result.json; `render_interpolated` of traversal 0 at 1920x1080
     (classic path), one frame against the plain path. Returns (results,
-    the launches of the phase's runs)."""
+    the launches of the phase's runs, what phase 13 reads: the held-out
+    records, samples and batches, the run and its work directory, which the
+    caller removes after phase 13)."""
     fx = nuplan_fixture()
     work = Path(tempfile.mkdtemp(prefix="nuplan_", dir=ROOT / "build"))
     t0 = time.perf_counter()
     try:
-        res, launches = _phase_nuplan(fx, work, card, dev)
-    finally:
+        res, launches, held_out = _phase_nuplan(fx, work, card, dev)
+    except BaseException:
         shutil.rmtree(work, ignore_errors=True)
+        raise
     res["phase_s"] = time.perf_counter() - t0
     log(f"# nuplan ({card}): phase 11 took {res['phase_s']:.1f} s")
-    return res, launches
+    return res, launches, dict(held_out, work=work)
 
 
 def _phase_nuplan(fx, work: Path, card: str, dev):
@@ -1765,8 +1801,9 @@ def _phase_nuplan(fx, work: Path, card: str, dev):
                      load_points=False)
     cache = data_loader.SampleCache(ev.records, SampleConfig(scale_factor=0.5),
                                     strategy="on_demand")
-    eval_batches = [data_loader.batch_from_sample(r, cache.get(i), device=dev)
-                    for i, r in enumerate(ev.records)]
+    eval_samples = [cache.get(i) for i in range(len(ev.records))]
+    eval_batches = [data_loader.batch_from_sample(r, s, device=dev)
+                    for r, s in zip(ev.records, eval_samples)]
     before = dict(cuda_build.LAUNCHES)
     untrained = evaluate_scene(params0, aux0, cfg, eval_batches, device=dev)
     n_ev = len(eval_batches)
@@ -1869,6 +1906,8 @@ def _phase_nuplan(fx, work: Path, card: str, dev):
                     n_intersections=[int(c["out"]["n_intersections"]) for c in calls],
                     middle_frame_vs_plain=frame_err),
         total_launches=total, printed_tail=printed[-1500:])
+    held_out = dict(records=ev.records, samples=eval_samples, batches=eval_batches,
+                    run=out)
     log(f"# nuplan ({card}): road block written in {setup_s:.1f} s, parsed in {parse_s:.1f} s "
         f"({len(scene.records)} records, {len(scene.seed_xyz)} seeds, {n_gauss} gaussians)")
     log(f"# nuplan ({card}): main {NUPLAN_STEPS} steps in {wall_s:.1f} s, ms/step median "
@@ -1881,7 +1920,353 @@ def _phase_nuplan(fx, work: Path, card: str, dev):
     log(f"# nuplan ({card}): render_interpolated {n} frames at {W}x{H} in {interp_s:.2f} s, "
         f"median {res['interp']['ms_per_frame_median']:.2f} ms/frame after the first; launches "
         f"{ilaunches}; middle frame vs plain {frame_err}")
-    return res, total
+    return res, total, held_out
+
+
+def seeded_lpips_weights(rng) -> dict:
+    """LPIPS-Alex at its published widths (the five convolutions of
+    `eval/lpips.py::_ALEX`), `lin` weights non-negative."""
+    w, in_ch = {}, 3
+    for i, (out_ch, k, _, _, _) in enumerate(lpips_mod._ALEX):
+        w[f"conv{i}_w"] = rng.standard_normal((out_ch, in_ch, k, k), np.float32) * np.float32(
+            (in_ch * k * k) ** -0.5)
+        w[f"conv{i}_b"] = rng.standard_normal(out_ch, np.float32) * np.float32(0.1)
+        w[f"lin{i}_w"] = rng.random(out_ch, np.float32)
+        in_ch = out_ch
+    return w
+
+
+def seeded_dinov2_weights(rng, D: int, heads: int, layers: int, hidden: int, patch: int,
+                          grid: int) -> dict:
+    """DINOv2 in the canonical layout: projections N(0, 1/fan_in), LayerNorms
+    near 1, LayerScale 0.05-0.15, embeddings N(0, 0.02)."""
+    def n(*shape, scale):
+        return rng.standard_normal(shape, np.float32) * np.float32(scale)
+
+    w = dict(patch_w=n(D, 3, patch, patch, scale=(3 * patch * patch) ** -0.5),
+             patch_b=n(D, scale=0.02), cls=n(D, scale=0.02), pos=n(1 + grid * grid, D, scale=0.02),
+             norm_w=1 + n(D, scale=0.1), norm_b=n(D, scale=0.02), heads=np.asarray(heads),
+             patch=np.asarray(patch))
+    for i in range(layers):
+        w.update({f"L{i}_{k}": n(D, D, scale=D ** -0.5) for k in ("q_w", "k_w", "v_w", "o_w")})
+        w.update({f"L{i}_{k}": n(D, scale=0.02) for k in ("q_b", "k_b", "v_b", "o_b", "n1_b",
+                                                          "n2_b", "fc2_b")})
+        w.update({f"L{i}_n1_w": 1 + n(D, scale=0.1), f"L{i}_n2_w": 1 + n(D, scale=0.1),
+                  f"L{i}_ls1": rng.uniform(0.05, 0.15, D).astype(np.float32),
+                  f"L{i}_ls2": rng.uniform(0.05, 0.15, D).astype(np.float32),
+                  f"L{i}_fc1_w": n(hidden, D, scale=D ** -0.5), f"L{i}_fc1_b": n(hidden, scale=0.02),
+                  f"L{i}_fc2_w": n(D, hidden, scale=hidden ** -0.5)})
+    return w
+
+
+@contextlib.contextmanager
+def weight_files(lpips_path: Path, dinov2_path: Path):
+    """MTGS_LPIPS_WEIGHTS / MTGS_DINOV2_WEIGHTS pointed at the two files
+    inside the block, restored after it."""
+    names = ("MTGS_LPIPS_WEIGHTS", "MTGS_DINOV2_WEIGHTS")
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ.update(dict(zip(names, (str(lpips_path), str(dinov2_path)))))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def psnr_u8(got: np.ndarray, want: np.ndarray) -> float:
+    mse = float(np.mean((got.astype(np.float64) - want.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10.0 * np.log10(255.0 ** 2 / mse)
+
+
+def jpeg_manifest():
+    """tests/make_jpeg_manifest.py (numpy only for `make_array`) and its
+    manifest of PIL's hashes."""
+    spec = importlib.util.spec_from_file_location(
+        "make_jpeg_manifest", ROOT / "tests" / "make_jpeg_manifest.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod, json.loads(mod.MANIFEST.read_text())
+
+
+def eval_export_scores(view, lp_params: dict, dv_weights: dict, dev, profile: bool) -> dict:
+    """Both forwards at one view on the card and on the CPU (the same port
+    code), their self-scores, and their times: LPIPS of the masked render
+    against the masked ground truth (one batch of two), DINOv2 patch tokens
+    of the render's 518x518 crop; host ms of the crop. With `profile`, also
+    a torch.profiler breakdown of one forward of each."""
+    out, batch = view
+    pred = out["rgb_appearance"] * batch.mask
+    gt = batch.image * batch.mask
+    lp_cpu = {k: v.cpu() for k, v in lp_params.items()}
+    lp_card = float(lpips_mod.lpips_forward(lp_params, pred, gt))
+    lp_host = float(lpips_mod.lpips_forward(lp_cpu, pred.cpu(), gt.cpu()))
+    lp_err = abs(lp_card - lp_host)
+    require(lp_err <= LPIPS_TOL["abs"] + LPIPS_TOL["rel"] * abs(lp_host),
+            f"LPIPS on the card {lp_card} against the CPU's {lp_host}")
+    lp_self = float(lpips_mod.lpips_forward(lp_params, pred, pred))
+    require(abs(lp_self) <= SELF_TOL, f"lpips(x, x) = {lp_self}")
+
+    rgb = out["rgb_appearance"].cpu().numpy()
+    crop_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        x = dinov2_mod._resize_center_crop(rgb, nearest=False)
+        crop_ms.append(1e3 * (time.perf_counter() - t0))
+    x = torch.as_tensor((x - 0.5) / 0.5)
+    xd = x.to(dev)
+    dv_cpu = {k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in dv_weights.items()}
+    tok_card = dinov2_mod.dinov2_forward(dv_weights, xd).cpu()
+    t0 = time.perf_counter()
+    tok_host = dinov2_mod.dinov2_forward(dv_cpu, x)
+    host_forward_s = time.perf_counter() - t0
+    dv_err = float((tok_card - tok_host).abs().max())
+    excess = float(((tok_card - tok_host).abs()
+                    - DINOV2_TOL["rtol"] * tok_host.abs()).max())
+    require(excess <= DINOV2_TOL["atol"],
+            f"DINOv2 patch tokens on the card off the CPU's by up to {dv_err}")
+    with torch.no_grad():
+        lp_ms = cuda_ms(lambda: lpips_mod.lpips_forward(lp_params, pred, gt), reps=10)
+        dv_ms = cuda_ms(lambda: dinov2_mod.dinov2_forward(dv_weights, xd), reps=10)
+        prof = None if not profile else dict(
+            lpips=phase_profile("one LPIPS forward (a view: render and ground truth)",
+                                lambda: lpips_mod.lpips_forward(lp_params, pred, gt)),
+            dinov2=phase_profile("one DINOv2 ViT-B/14 forward (518x518)",
+                                 lambda: dinov2_mod.dinov2_forward(dv_weights, xd)))
+    H, W = pred.shape[:2]
+    return dict(lpips_card=lp_card, lpips_cpu=lp_host, lpips_abs_err=lp_err,
+                lpips_self=lp_self, dinov2_tokens_max_abs_err=dv_err,
+                dinov2_tokens_shape=list(tok_card.shape), dinov2_cpu_forward_s=host_forward_s,
+                view_hw=[H, W], lpips_ms_per_view=lp_ms, dinov2_ms_per_forward=dv_ms,
+                dinov2_ms_per_view=2 * dv_ms, crop_host_ms=crop_ms,
+                crop_host_ms_median=float(np.median(crop_ms)), profile=prof)
+
+
+def gaussian_exports(node, aux, out: Path) -> dict:
+    """The trained background through the three exporters, timed; the .ply
+    read back must give the node's parameters exactly."""
+    n = int(aux.num_alive)
+    secs = {}
+    for fmt in ("ply", "splat", "point_cloud"):
+        t0 = time.perf_counter()
+        path = getattr(gaussian_export, f"export_{fmt}")(node, aux, out / f"background.{fmt}")
+        secs[fmt] = time.perf_counter() - t0
+        require(path.exists() and path.stat().st_size > 0, f"{path}: not written")
+    require((out / "background.splat").stat().st_size == 32 * n, ".splat: not 32 bytes a record")
+    back = gaussian_export.read_gaussian_ply(out / "background.ply")
+    host = lambda t: t[:n].detach().cpu().numpy()
+    want = dict(means=host(node.means), quats=host(node.quats), opacities=host(node.opacities),
+                features_dc=host(node.features_dc),
+                scales=np.broadcast_to(host(node.scales), (n, 3)))
+    rest = node.features_rest if node.features_rest.ndim == 3 else node.features_rest[:, 0]
+    if rest.shape[1]:
+        want["features_rest"] = host(rest)
+    bad = [k for k, v in want.items() if not np.array_equal(back.get(k), v)]
+    require(not bad, f"read_gaussian_ply gave back other {bad}")
+    return dict(gaussians=n, seconds=secs,
+                seconds_per_1e5={k: v * 1e5 / n for k, v in secs.items()},
+                bytes={fmt: (out / f"background.{fmt}").stat().st_size
+                       for fmt in ("ply", "splat", "point_cloud")})
+
+
+def phase_eval_export(card: str, dev, nuplan_res: dict, held_out: dict, profile: bool = False):
+    """Phase 13: eval scoring and export on phase 11's trained road block
+    (after phase 12, so that phases 4-12 run as before it was added).
+    Seeded LPIPS-Alex and DINOv2 ViT-B/14 weights at the published widths
+    under build/chip_smoke/, pointed at by MTGS_LPIPS_WEIGHTS /
+    MTGS_DINOV2_WEIGHTS for this phase only; `eval_setup` on the run, then
+    `evaluate_scene` with both metrics on over the held-out traversal and
+    `export_eval_images` in its three modes, the launch counters zeroed just
+    before and read just after (the two forward kernels once per view of
+    each); the other metrics equal to an eval with both off; both forwards
+    on the card against the CPU at one view; every written JPEG decoded by
+    the port's decoder, PSNR >= EXPORT_PSNR_MIN against the array it
+    encodes; the encoder's bytes against PIL's manifest; the trained
+    background through tools/export.py; `profile` adds a torch.profiler
+    breakdown of one LPIPS and one DINOv2 forward. Returns (results,
+    launches)."""
+    t_phase = time.perf_counter()
+    require(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+            "TF32 is on: the f32 LPIPS convolutions and DINOv2 matmuls would round to TF32")
+    for label in ("untrained_eval", "eval", "resumed_eval"):
+        found = {"lpips", "dinov2_sim"} & set(nuplan_res[label])
+        require(not found, f"phase 11's {label} scored {found}: a weight file was found")
+    records, samples, batches = held_out["records"], held_out["samples"], held_out["batches"]
+    work, n_ev = held_out["work"], len(batches)
+
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(EVAL_EXPORT_SEED)
+    t0 = time.perf_counter()
+    lp_path, dv_path = out_dir / "lpips_alex_seeded.npz", out_dir / "dinov2_vitb14_seeded.npz"
+    np.savez(lp_path, **seeded_lpips_weights(rng))
+    np.savez(dv_path, **seeded_dinov2_weights(rng, **VITB))
+    weights_s = time.perf_counter() - t0
+    export_root = work / "export"
+    try:
+        with weight_files(lp_path, dv_path):
+            params, aux, rcfg, _, _ = train_scene.eval_setup(held_out["run"], device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            off = evaluate_scene(params, aux, rcfg, batches,
+                                 eval_cfg=EvalConfig(lpips=False, dinov2=False), device=dev)
+            torch.cuda.synchronize()
+            eval_off_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            lp_params = lpips_mod.load_weights(lp_path, dev)
+            dv_weights = dinov2_mod.load_weights(dv_path, dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            n_params = sum(v.numel() for v in dv_weights.values() if isinstance(v, torch.Tensor))
+            lp_fn, dv_fn = lpips_mod.get_lpips(dev), dinov2_mod.get_dinov2(dev)
+            require(lp_fn is not None and dv_fn is not None, "a weight file was not found")
+
+            writes, warps = [], []
+
+            def timed_write(fn):
+                def call(path, img):
+                    t1 = time.perf_counter()
+                    p = fn(path, img)
+                    writes.append(dict(path=Path(p), img=img,
+                                       ms=1e3 * (time.perf_counter() - t1)))
+                    return p
+                return call
+
+            def timed_warp(fn):
+                def call(*a, **k):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    o = fn(*a, **k)
+                    torch.cuda.synchronize()
+                    warps.append(1e3 * (time.perf_counter() - t1))
+                    return o
+                return call
+
+            metas = [dict(raw_path=r.image_path, K_raw=r.intrinsic, dist=r.distortion,
+                          K_und=s["K"], raw_hw=(r.height, r.width),
+                          rel_path="/".join(Path(r.image_path).parts[-3:]))
+                     for r, s in zip(records, samples)]
+            written = {}
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(wrapped(pipeline_mod, "write_jpeg", timed_write))
+                stack.enter_context(wrapped(pipeline_mod, "redistort_image", timed_warp))
+                torch.cuda.synchronize()
+                # the eval and export path: kernel launches counted from here ...
+                cuda_build.reset_launches()
+                t0 = time.perf_counter()
+                on = evaluate_scene(params, aux, rcfg, batches,
+                                    eval_cfg=EvalConfig(lpips=True, dinov2=True), device=dev)
+                torch.cuda.synchronize()
+                eval_s = time.perf_counter() - t0
+                eval_launches = dict(cuda_build.LAUNCHES)
+                t0 = time.perf_counter()
+                for mode in ("sequential", "sequential_with_gt", "nuplan"):
+                    written[mode] = export_eval_images(
+                        params, aux, rcfg, batches, export_root / mode, mode=mode,
+                        view_metas=metas, device=dev)
+                torch.cuda.synchronize()
+                export_s = time.perf_counter() - t0
+                launches = dict(cuda_build.LAUNCHES)
+                # ... to here
+            require_launches(eval_launches, dict(expand_fused=n_ev, blend_forward=n_ev),
+                             f"phase 13: the eval over {n_ev} views")
+            require_launches(launches, dict(expand_fused=4 * n_ev, blend_forward=4 * n_ev),
+                             f"phase 13: the eval and three exports of {n_ev} views")
+            new_keys = {"lpips", "dinov2_sim"}
+            new_keys |= {f"trv{int(b.travel_index)}_{k}" for b in batches for k in new_keys}
+            require(set(on) == set(off) | new_keys, f"eval keys {sorted(set(on) ^ set(off))}")
+            require(all(np.isfinite(on[k]) for k in new_keys),
+                    f"non-finite scores {({k: on[k] for k in new_keys})}")
+            diff = {k: abs(on[k] - off[k]) for k in off if k not in ("fps", "num_images")
+                    and not (np.isnan(on[k]) and np.isnan(off[k]))}
+            require(max(diff.values()) <= EVAL_EXPORT_TOL,
+                    f"metrics moved with LPIPS and DINOv2 on: {diff}")
+
+            with torch.no_grad():
+                view = render_view(params, aux, rcfg, batches[0], 10**9, device=dev)
+            scores = eval_export_scores((view, batches[0]), lp_params, dv_weights, dev, profile)
+            x = view["rgb_appearance"]
+            dv_self = dv_fn(x, x, batches[0].mask.squeeze())
+            require(abs(dv_self - 1.0) <= SELF_TOL, f"dinov2_sim(x, x) = {dv_self}")
+            scores["dinov2_sim_self"] = dv_self
+
+        # every written file decodes to its array's shape, PSNR >= the floor
+        by_path = {str(w["path"]): w for w in writes}
+        files = {}
+        for mode, paths in written.items():
+            rows = []
+            for p in paths:
+                if p.endswith("_gt.jpg"):  # the raw ground truth's symlink
+                    require(Path(p).is_symlink() and Path(p).resolve().exists(),
+                            f"{p}: the symlink does not resolve")
+                    rows.append(dict(path=p, symlink_to=os.readlink(p)))
+                    continue
+                w = by_path[p]
+                dec = image_io.read_image(p)
+                require(dec.shape == w["img"].shape, f"{p}: decoded {dec.shape}, wrote "
+                        f"{w['img'].shape}")
+                rows.append(dict(path=os.path.relpath(p, export_root), shape=list(dec.shape),
+                                 psnr=psnr_u8(dec, w["img"]), bytes=Path(p).stat().st_size))
+                require(rows[-1]["psnr"] >= EXPORT_PSNR_MIN,
+                        f"{p}: PSNR {rows[-1]['psnr']:.2f} dB against its array")
+            files[mode] = rows
+        want_shapes = dict(sequential=tuple(batches[0].image.shape),
+                           nuplan=(records[0].height, records[0].width, 3))
+        for mode, shape in want_shapes.items():
+            require(all(tuple(r["shape"]) == shape for r in files[mode]),
+                    f"{mode}: shapes {[r['shape'] for r in files[mode]]}, expected {shape}")
+        require(len(files["sequential_with_gt"]) == 3 * n_ev,
+                f"sequential_with_gt wrote {len(files['sequential_with_gt'])} files")
+
+        # the encoder against PIL's manifest (no PIL here)
+        mfx, manifest = jpeg_manifest()
+        sha = []
+        for entry in manifest["arrays"]:
+            img = mfx.make_array(entry)
+            data = image_io.encode_jpeg(img)
+            sha.append(dict(name=entry["name"],
+                            equal=hashlib.sha256(data).hexdigest() == entry["sha256"]))
+        require(all(e["equal"] for e in sha), f"encoder bytes off PIL's manifest: {sha}")
+        grad = mfx.make_array(manifest["arrays"][-1])
+        encode_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            image_io.encode_jpeg(grad)
+            encode_ms.append(1e3 * (time.perf_counter() - t0))
+        frames = [w["ms"] for w in writes if w["img"].shape[:2] == (1080, 1920)]
+
+        gexp = gaussian_exports(params.background, aux.background, work)
+    finally:
+        lp_path.unlink(missing_ok=True)
+        dv_path.unlink(missing_ok=True)
+    res = dict(
+        card=card, weights_s=weights_s, load_s=load_s, dinov2_params=n_params, views=n_ev,
+        eval=on, eval_off=off, eval_max_diff=max(diff.values()), eval_s=eval_s,
+        eval_off_s=eval_off_s,
+        export_s=export_s, launches=launches, eval_launches=eval_launches, scores=scores,
+        files=files, manifest_sha256=sha, write_jpeg_ms_1920x1080=frames,
+        write_jpeg_ms_1920x1080_median=float(np.median(frames)),
+        encode_gradient_ms=encode_ms, encode_gradient_ms_median=float(np.median(encode_ms)),
+        redistort_ms=warps, redistort_ms_median=float(np.median(warps)),
+        gaussian_export=gexp)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"# eval+export ({card}): lpips {on['lpips']:.4f}, dinov2_sim {on['dinov2_sim']:.4f} over "
+        f"{n_ev} views (other metrics off by at most {res['eval_max_diff']:.2g}); eval {eval_s:.2f} "
+        f"s ({eval_off_s:.2f} without the two; both weight files load in {load_s:.2f} s), "
+        f"exports {export_s:.2f} s; launches {launches}")
+    log(f"# eval+export ({card}): LPIPS {scores['lpips_ms_per_view']:.3f} ms/view, DINOv2 "
+        f"{scores['dinov2_ms_per_forward']:.3f} ms/forward (ViT-B/14, {n_params} parameters), "
+        f"crop {scores['crop_host_ms_median']:.2f} ms host; card vs CPU: lpips err "
+        f"{scores['lpips_abs_err']:.2g}, tokens err {scores['dinov2_tokens_max_abs_err']:.2g}")
+    log(f"# eval+export ({card}): write_jpeg 1920x1080 median {res['write_jpeg_ms_1920x1080_median']:.1f}"
+        f" ms, redistort_image median {res['redistort_ms_median']:.2f} ms/frame, min PSNR "
+        f"{min(r['psnr'] for rows in files.values() for r in rows if 'psnr' in r):.2f} dB; "
+        f"manifest {sum(e['equal'] for e in sha)}/{len(sha)} equal; gaussian export of "
+        f"{gexp['gaussians']}: {gexp['seconds_per_1e5']} s per 1e5; phase 13 took "
+        f"{res['phase_s']:.1f} s")
+    return res, launches
 
 
 def trained_scene_grads(trainer, cfg, batch, label: str = "campaign",
@@ -2731,8 +3116,8 @@ def main(argv=None):
                     help="phase 9's background (rescaled once if its views' pair counts "
                          "miss the growth window)")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one view and one training step with torch.profiler "
-                         "(kernel time by name)")
+                    help="also trace one view, one training step and the LPIPS and DINOv2 "
+                         "forwards with torch.profiler (kernel time by name)")
     ap.add_argument("--ab", action="append", default=[], metavar="SOURCE=PATH",
                     help="also time another version of a kernel source (the same C "
                          "interface, e.g. a parent commit's csrc/expand_pairs.cu; "
@@ -2770,14 +3155,21 @@ def main(argv=None):
         phase_growth(args, dev)
     campaign_res, campaign_captured, campaign_launches, campaign_trainer, campaign_scene = \
         phase_campaign(card, dev)
-    nuplan_res, nuplan_launches = phase_nuplan(card, dev)
-    deform_res, deform_launches, deform_trainers = phase_deformables(
-        card, dev, campaign_scene, campaign_res)
+    nuplan_res, nuplan_launches, held_out = phase_nuplan(card, dev)
+    try:
+        deform_res, deform_launches, deform_trainers = phase_deformables(
+            card, dev, campaign_scene, campaign_res)
+        eval_export_res, eval_export_launches = phase_eval_export(
+            card, dev, nuplan_res, held_out, profile=args.profile)
+    finally:
+        shutil.rmtree(held_out["work"], ignore_errors=True)
+    del held_out
     del campaign_scene
     by_path = dict(serving=main_res["launches"], training=train_res["launches"],
                    classic_renders=classic_launches, classic_step=classic_step_launches,
                    render_tool=render_res["launches"], growth=growth_launches,
-                   campaign=campaign_launches, nuplan=nuplan_launches, **deform_launches)
+                   campaign=campaign_launches, nuplan=nuplan_launches,
+                   eval_export=eval_export_launches, **deform_launches)
     serving_captured = {}  # the kernel wrappers' arguments in one serving view
     with capturing(serving_captured), torch.no_grad():
         render_view(params, aux, cfg, batch, 10**9, device=dev)
@@ -2810,7 +3202,7 @@ def main(argv=None):
         summary = dict(card=card, build_seconds=build_s, goldens=goldens, main=main_res,
                        train=train_res, classic=classic_res, render_tool=render_res,
                        growth=growth_res, campaign=campaign_res, nuplan=nuplan_res,
-                       deformables=deform_res, kernels=kernels, ab=ab,
+                       eval_export=eval_export_res, deformables=deform_res, kernels=kernels, ab=ab,
                        profile=prof,
                        seconds=time.perf_counter() - t_start)
         (args.out / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

@@ -1,10 +1,11 @@
 """Quaternion math (wxyz convention), batched over leading dims.
 
-Port of `mtgs_tpu/core/quat.py`: the subset the render path and the
-render tool use.
+Port of `mtgs_tpu/core/quat.py`.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -115,3 +116,41 @@ def slerp(q0: torch.Tensor, q1: torch.Tensor, t: torch.Tensor,
                      torch.sin((1.0 - t) * theta) / torch.clamp(sin_theta, min=eps))
     w1 = torch.where(near, t, torch.sin(t * theta) / torch.clamp(sin_theta, min=eps))
     return quat_normalize(w0 * q0 + w1 * q1)
+
+
+def random_quats(generator: torch.Generator, n: int, dtype=torch.float32) -> torch.Tensor:
+    """Uniformly random unit quaternions [n, 4] (Shoemake's method), drawn
+    from `generator` on its device."""
+    kw = dict(generator=generator, dtype=dtype, device=generator.device)
+    u = torch.rand(n, **kw)
+    v = torch.rand(n, **kw) * 2.0 * math.pi
+    w = torch.rand(n, **kw) * 2.0 * math.pi
+    return torch.stack([torch.sqrt(1.0 - u) * torch.sin(v), torch.sqrt(1.0 - u) * torch.cos(v),
+                        torch.sqrt(u) * torch.sin(w), torch.sqrt(u) * torch.cos(w)], dim=-1)
+
+
+def rotate_vector_to_vector(v1: torch.Tensor, v2: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Rotation matrices [..., 3, 3] sending direction v1 to direction v2
+    (Rodrigues), with a branch-free antiparallel case: a rotation by pi
+    about an axis orthogonal to v1."""
+    a = v1 / torch.clamp(torch.linalg.norm(v1, dim=-1, keepdim=True), min=eps)
+    b = v2 / torch.clamp(torch.linalg.norm(v2, dim=-1, keepdim=True), min=eps)
+    v = _cross(a, b)
+    c = torch.sum(a * b, dim=-1)   # cos
+    s2 = torch.sum(v * v, dim=-1)  # sin^2
+    vx, vy, vz = v.unbind(-1)
+    zeros = torch.zeros_like(vx)
+    K = torch.stack([torch.stack([zeros, -vz, vy], dim=-1),
+                     torch.stack([vz, zeros, -vx], dim=-1),
+                     torch.stack([-vy, vx, zeros], dim=-1)], dim=-2)
+    eye = torch.eye(3, dtype=v1.dtype, device=v1.device).expand(K.shape)
+    factor = torch.where(s2 > eps, (1.0 - c) / torch.clamp(s2, min=eps),
+                         torch.full_like(s2, 0.5))
+    R = eye + K + factor[..., None, None] * (K @ K)
+    x_axis = torch.tensor([1.0, 0, 0], dtype=a.dtype, device=a.device)
+    y_axis = torch.tensor([0, 1.0, 0], dtype=a.dtype, device=a.device)
+    ortho = _cross(a, torch.where(torch.abs(a[..., :1]) < 0.9, x_axis, y_axis))
+    ortho = ortho / torch.clamp(torch.linalg.norm(ortho, dim=-1, keepdim=True), min=eps)
+    R_pi = 2.0 * ortho[..., :, None] * ortho[..., None, :] - eye
+    anti = (c < -1.0 + 1e-6)[..., None, None]
+    return torch.where(anti, R_pi, R)

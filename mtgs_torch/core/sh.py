@@ -60,3 +60,14 @@ def sh_basis(degree: int, dirs: torch.Tensor) -> torch.Tensor:
             _C3[6] * x * (xx - 3.0 * yy),
         ]
     return torch.stack(out, dim=-1)
+
+
+def eval_sh(degree: int, coeffs: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """SH colour at view directions, as gsplat's `spherical_harmonics`:
+    only the first num_sh_bases(degree) of coeffs [..., K, C] are used;
+    dirs [..., 3] need not be normalized (1e-12 floor). Returns [..., C]
+    offset by +0.5 (the 3DGS convention), not clamped."""
+    n = num_sh_bases(degree)
+    d = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-12)
+    basis = sh_basis(degree, d)
+    return (basis[..., :, None] * coeffs[..., :n, :]).sum(-2) + 0.5

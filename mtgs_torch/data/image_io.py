@@ -23,10 +23,20 @@ runs where no imaging package is installed:
   accumulated in PIL's order), nearest PIL's affine scale (source
   coordinates accumulated in float64).
 
-The C++ library is compiled on first use by the host compiler (`$CXX`, else
-`c++`) into `build/mtgs_torch/`, under a name that hashes the source and the
-flags; nothing is built at import. ctypes releases the GIL during a decode,
-so `SampleCache`'s threads decode in parallel.
+The eval and export layers write and resample uint8 images as PIL does,
+through `csrc/image_encode.cc`:
+
+* `write_jpeg(path, rgb_u8)` — the bytes of `PIL.Image.fromarray(rgb).save(path)`
+  for a .jpg path: baseline JPEG at PIL's defaults (quality 75, 4:2:0,
+  libjpeg's islow DCT and standard Huffman tables).
+* `resize_u8(img_u8, (w, h), nearest)` — `np.asarray(PIL.Image.fromarray(img)
+  .resize((w, h), NEAREST or BILINEAR))` for uint8 [H, W] or [H, W, 3]:
+  PIL's 8-bit resample (22-bit fixed-point weights), not its float one.
+
+The C++ libraries are compiled on first use by the host compiler (`$CXX`,
+else `c++`) into `build/mtgs_torch/`, under a name that hashes the source and
+the flags; nothing is built at import. ctypes releases the GIL during a
+call, so `SampleCache`'s threads decode in parallel.
 """
 
 from __future__ import annotations
@@ -45,50 +55,71 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "image_decode.cc"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCE = CSRC / "image_decode.cc"
+ENCODE_SOURCE = CSRC / "image_encode.cc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mtgs_torch"
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 
 _LIB: Optional[ctypes.CDLL] = None
+_ENC_LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
 _ERR_LEN = 256
 
 
-def _compiler() -> str:
+def _compiler(source: Path) -> str:
     cxx = os.environ.get("CXX") or "c++"
     path = shutil.which(cxx)
     if path is None:
         raise RuntimeError(
-            f"mtgs_torch: no C++ compiler {cxx!r} on PATH; the image decoders "
-            f"(mtgs_torch/csrc/image_decode.cc) are built with it on first use")
+            f"mtgs_torch: no C++ compiler {cxx!r} on PATH; mtgs_torch/csrc/{source.name} "
+            f"(the image decoders, or the JPEG encoder and uint8 resize) is built with it "
+            f"on first use")
     return path
 
 
-def library_path() -> Path:
-    """Where the decoder library of this source and these flags lives."""
-    h = hashlib.sha256(SOURCE.read_bytes())
+def library_path(source: Path = SOURCE) -> Path:
+    """Where the library of this source and these flags lives."""
+    h = hashlib.sha256(source.read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"image_decode_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{source.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the decoder library unless it exists; returns its path. The
-    library is written under a temporary name and renamed into place, so
-    processes building at once agree. Raises with the compiler's output."""
-    out = library_path()
+def build(source: Path = SOURCE) -> Path:
+    """Compile a host library (the decoders by default) unless it exists;
+    returns its path. The library is written under a temporary name and
+    renamed into place, so processes building at once agree. Raises with
+    the compiler's output."""
+    out = library_path(source)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_compiler(), *CXX_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [_compiler(source), *CXX_FLAGS, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"mtgs_torch: building {SOURCE.name} failed ({' '.join(cmd)}):\n"
+        raise RuntimeError(f"mtgs_torch: building {source.name} failed ({' '.join(cmd)}):\n"
                            f"{proc.stdout}")
     os.replace(tmp, out)
     return out
+
+
+def _enc_lib() -> ctypes.CDLL:
+    global _ENC_LIB
+    with _LOCK:
+        if _ENC_LIB is None:
+            lib = ctypes.CDLL(str(build(ENCODE_SOURCE)))
+            u8p, i64, i32, cp = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_char_p
+            lib.mtgs_jpeg_bound.argtypes = [i32, i32]
+            lib.mtgs_jpeg_bound.restype = i64
+            lib.mtgs_jpeg_encode.argtypes = [u8p, i32, i32, u8p, i64, cp, i32]
+            lib.mtgs_jpeg_encode.restype = i64
+            lib.mtgs_resize_u8.argtypes = [u8p, i32, i32, i32, u8p, i32, i32, cp, i32]
+            lib.mtgs_resize_u8.restype = i32
+            _ENC_LIB = lib
+        return _ENC_LIB
 
 
 def _lib() -> ctypes.CDLL:
@@ -311,3 +342,54 @@ def resize(img: np.ndarray, scale: float, nearest: bool = False) -> np.ndarray:
         out = torch.stack(chans, -1)
     out = out.numpy()
     return out[..., 0] if img.ndim == 2 else out
+
+
+def encode_jpeg(rgb_u8: np.ndarray) -> bytes:
+    """The baseline JPEG bytes PIL writes for an RGB uint8 [H, W, 3] image at
+    its defaults (quality 75, 4:2:0)."""
+    img = np.asarray(rgb_u8)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"encode_jpeg takes RGB uint8 [H, W, 3], got {img.dtype} {img.shape}")
+    img = np.ascontiguousarray(img)
+    h, w = img.shape[:2]
+    lib = _enc_lib()
+    out = np.empty(lib.mtgs_jpeg_bound(h, w), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    n = lib.mtgs_jpeg_encode(_ptr(img), h, w, _ptr(out), out.size, err, _ERR_LEN)
+    if n < 0:
+        raise ValueError(f"encode_jpeg: {err.value.decode()}")
+    return out[:n].tobytes()
+
+
+def write_jpeg(path, rgb_u8: np.ndarray) -> Path:
+    """Write an RGB uint8 [H, W, 3] image as the JPEG file
+    `PIL.Image.fromarray(rgb_u8).save(path)` writes for a .jpg path."""
+    path = Path(path)
+    path.write_bytes(encode_jpeg(rgb_u8))
+    return path
+
+
+def resize_u8(img_u8: np.ndarray, size: Tuple[int, int], nearest: bool = False) -> np.ndarray:
+    """`np.asarray(PIL.Image.fromarray(img).resize(size, NEAREST or BILINEAR))`
+    for uint8 [H, W] (mode "L") or [H, W, C]; size is (width, height)."""
+    img = np.asarray(img_u8)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        raise ValueError(f"resize_u8 takes uint8 [H, W] or [H, W, C], got {img.dtype} "
+                         f"{img.shape}")
+    h, w = img.shape[:2]
+    ow, oh = int(size[0]), int(size[1])
+    if ow < 1 or oh < 1:
+        raise ValueError(f"resize_u8: target size {size}")
+    if (ow, oh) == (w, h):
+        return img.copy()
+    if nearest:
+        rows = _nearest_index(h, oh).numpy()
+        cols = _nearest_index(w, ow).numpy()
+        return img[rows][:, cols]
+    src = np.ascontiguousarray(img)
+    c = 1 if img.ndim == 2 else img.shape[2]
+    out = np.empty((oh, ow) + img.shape[2:], np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if _enc_lib().mtgs_resize_u8(_ptr(src), h, w, c, _ptr(out), oh, ow, err, _ERR_LEN):
+        raise ValueError(f"resize_u8: {err.value.decode()}")
+    return out

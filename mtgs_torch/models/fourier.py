@@ -1,12 +1,15 @@
-"""Fourier (IDFT) time-conditioned dc colours for rigid nodes; port of
-`mtgs_tpu/models/fourier.py::idft_basis`, `fourier_features_dc` and
-`init_fourier_dc`."""
+"""Fourier (IDFT) time-conditioned dc colours for rigid nodes, instance
+velocities and trajectory edits; port of `mtgs_tpu/models/fourier.py`.
+The edits return new tensors and leave their inputs as they were."""
 
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
+
+from mtgs_torch.core.quat import quat_mult, quat_normalize, quat_rotate
 
 
 def idft_basis(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -33,3 +36,40 @@ def init_fourier_dc(features_dc: torch.Tensor, fourier_dim: int) -> torch.Tensor
     coeffs = features_dc.new_zeros(features_dc.shape[:-1] + (fourier_dim, 3))
     coeffs[..., 0, :] = features_dc
     return coeffs
+
+
+def instance_velocities(quats: torch.Tensor, trans: torch.Tensor, timestamps: torch.Tensor,
+                        frame_idx: int, means_local: torch.Tensor) -> torch.Tensor:
+    """Finite-difference world velocity [I, cap, 3] of each gaussian of
+    instances with per-frame poses quats [I, F, 4], trans [I, F, 3] at a
+    frame (`rigid_node.py:168-204`): (x_w(f+1) - x_w(f-1)) / (t+ - t-),
+    one-sided at the trajectory's ends."""
+    F = trans.shape[1]
+    f = int(frame_idx)
+    f0, f1 = min(max(f - 1, 0), F - 1), min(max(f + 1, 0), F - 1)
+
+    def world(i):
+        q = quat_normalize(quats[:, i])[:, None, :]
+        return quat_rotate(q, means_local) + trans[:, i][:, None, :]
+
+    dt = timestamps[f1] - timestamps[f0]
+    dt = torch.where(torch.abs(dt) < 1e-9, torch.ones_like(dt), dt)
+    return (world(f1) - world(f0)) / dt
+
+
+def edit_translate(trans: torch.Tensor, instance: int, offset) -> torch.Tensor:
+    """Shift one instance's whole trajectory (`rigid_node.py:398-407`)."""
+    out = trans.clone()
+    out[instance] += torch.as_tensor(offset, dtype=trans.dtype, device=trans.device)
+    return out
+
+
+def edit_rotate(quats: torch.Tensor, trans: torch.Tensor, instance: int, rot_quat,
+                pivot) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rotate one instance's trajectory about a pivot (`rigid_node.py:409-421`)."""
+    rot = torch.as_tensor(rot_quat, dtype=quats.dtype, device=quats.device)[None, :]
+    pivot = torch.as_tensor(pivot, dtype=trans.dtype, device=trans.device)
+    new_q, new_t = quats.clone(), trans.clone()
+    new_q[instance] = quat_mult(rot, quats[instance])
+    new_t[instance] = quat_rotate(rot, trans[instance] - pivot) + pivot
+    return new_q, new_t

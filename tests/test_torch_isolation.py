@@ -210,3 +210,67 @@ def test_image_decoders_build_from_the_checkout(tmp_path, monkeypatch):
     monkeypatch.setenv("CXX", "no-such-compiler")
     with pytest.raises(RuntimeError, match="no-such-compiler"):
         image_io.build()
+
+
+def test_eval_and_export_modules_import_no_jax():
+    """The scoring, export and encoding modules, imported alone, load none of
+    JAX, flax, mtgs_tpu or PIL."""
+    mods = ["mtgs_torch.eval.lpips", "mtgs_torch.eval.dinov2", "mtgs_torch.eval.pipeline",
+            "mtgs_torch.tools.export", "mtgs_torch.data.image_io", "mtgs_torch.core.camera",
+            "mtgs_torch.models.fourier"]
+    assert set(mods) <= set(all_modules())
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_image_encoder_builds_from_the_checkout(tmp_path, monkeypatch):
+    """`image_io` compiles mtgs_torch/csrc/image_encode.cc (the JPEG encoder
+    and the uint8 resize) with the host compiler into build/mtgs_torch/,
+    under a name hashing the source and the flags; without a compiler the
+    encoder raises, naming it."""
+    from mtgs_torch.data import image_io
+
+    src = image_io.ENCODE_SOURCE
+    assert src == PKG / "csrc" / "image_encode.cc" and src.exists()
+    lib = image_io.library_path(src)
+    assert lib.parent == PKG.parent / "build" / "mtgs_torch"
+    assert lib.name.startswith("image_encode_") and lib.suffix == ".so"
+    assert lib != image_io.library_path()  # the decoders' library is another
+    assert image_io.build(src) == lib and lib.exists()
+    monkeypatch.setattr(image_io, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(image_io, "_ENC_LIB", None)
+    monkeypatch.setenv("CXX", "no-such-compiler")
+    with pytest.raises(RuntimeError, match="no-such-compiler.*image_encode.cc"):
+        image_io.write_jpeg(tmp_path / "x.jpg", np.zeros((8, 8, 3), np.uint8))
+    assert not (tmp_path / "x.jpg").exists()
+
+
+def test_scoring_and_export_raise_without_a_card(no_card, tmp_path, monkeypatch):
+    """`export_eval_images`, `get_lpips` and `get_dinov2` default to the card
+    and raise without one, before they look for weights or write a file;
+    asked for, the CPU runs."""
+    from mtgs_torch.eval import dinov2, lpips
+
+    monkeypatch.setenv("MTGS_LPIPS_WEIGHTS", str(tmp_path / "none.npz"))
+    monkeypatch.setenv("MTGS_DINOV2_WEIGHTS", str(tmp_path / "none.npz"))
+    params, aux = _tiny_scene()
+    cfg = configs.mtgs_config(32, 16).replace(max_intersections=1 << 12)
+    for fn in (lpips.get_lpips, dinov2.get_dinov2):
+        with pytest.raises(RuntimeError, match="cuda"):
+            fn()
+        assert fn(device="cpu") is None  # no weight file
+    with pytest.raises(RuntimeError, match="cuda"):
+        pipeline.export_eval_images(params, aux, cfg, [_batch()], tmp_path / "out")
+    assert not (tmp_path / "out").exists()
+    out = pipeline.export_eval_images(params, aux, cfg, [_batch()], tmp_path / "out",
+                                      device="cpu")
+    assert [Path(p).relative_to(tmp_path / "out").as_posix() for p in out] == [
+        "traversal_0/cam0/0_rendered.jpg"]
