@@ -12,8 +12,11 @@ training across the capacity growth that leaves the fused path, the
 training campaign (`tools.campaign.main`), a nuPlan road block through
 `tools.train_scene.main` with the port's own JPEG and PNG decoders, the
 road block's eval with LPIPS and DINOv2 scoring and its image and gaussian
-export, and the deformable and WildGaussians presets on the campaign's
-scene; and holds
+export, the deformable and WildGaussians presets on the campaign's scene,
+the viewer serving the road block over HTTP (`viewer.server`), and the
+metric writers, the trace and the two bench tools
+(`utils/observability.py`, `tools/bench_train.py`,
+`tools/profile_raster.py`); and holds
 the seven hand-written CUDA kernels (`csrc/expand_fused.cu`,
 `csrc/blend_forward.cu`, `csrc/blend_backward.cu`, `csrc/segment_sum.cu`,
 `csrc/expand_pairs.cu`, the two of `csrc/transpose.cu`) against their
@@ -131,7 +134,7 @@ plain PyTorch versions. Phases, each of which raises on failure:
   13. eval and export, on phase 11's trained run:
      seeded LPIPS-Alex and DINOv2 ViT-B/14 weights at the published widths
      written under build/chip_smoke/ and named by MTGS_LPIPS_WEIGHTS /
-     MTGS_DINOV2_WEIGHTS for this phase only (phases 11 and 12 find none and
+     MTGS_DINOV2_WEIGHTS for phases 13-14 only (phases 11 and 12 find none and
      score neither); `eval_setup`, then `evaluate_scene` with both metrics
      on over the held-out traversal and `export_eval_images` in its three
      modes (`nuplan` re-distorted to the raw 1920x1080 CAM_F0), the launch
@@ -148,6 +151,32 @@ plain PyTorch versions. Phases, each of which raises on failure:
      DINOv2 per view (CUDA events), the crop's host ms, `write_jpeg` per
      1920x1080 frame, `redistort_image` per frame, export s per 1e5
      gaussians;
+  14. viewer, on phase 11's trained run (after phase 13, whose weight files
+     it reuses): `viewer.server.viewer_from_run` on the card, served on
+     127.0.0.1:0 in a thread; the page, /meta (travels, init_cam, at most 500
+     cameras), /render for every output (rgb, depth, accumulation, normal) x
+     both rungs (960x540 and lowres 240x135) x each traversal, `mean` and
+     `null` x t in VIEWER_STAMPS at a held-out camera: status 200, a JPEG
+     the port's decoder opens at the rung's size, byte-equal to
+     `ViewerServer.render` in-process, the kernels of the path `fused_fits`
+     picks launched once each (counted around the request); the full
+     rung's rgb frames against the plain path within VIEW_TOL["rgb"];
+     /export byte-equal to tools/export.py, format xyz 500, /nope 404; each
+     rung timed over VIEWER_REQUESTS round trips after VIEWER_WARMUP, and
+     in-process split into render + sync, colourise + copy and the q85
+     encode; `evaluate_scene` twice with LPIPS and DINOv2 on, its weight
+     loaders counted (one load of each, in the first call), both timed;
+     `encode_jpeg(..., quality=85)` against the manifest's q85 hashes;
+  15. observability and the tools: `Trainer.train(OBS_STEPS,
+     writer=JsonlWriter)` on phase 4's scene from phase 6's start (every
+     metric key, and step_ms / rays_per_s from the second step, in the
+     file; the fused kernels once a step); `observability.trace` around
+     OBS_TRACE_STEPS more steps, `summarize_trace` naming the four fused
+     kernels as the CUDA sources do, once a step as counted;
+     `tools/bench_train.py` and `tools/profile_raster.py` at their defaults
+     (classic) and with `--fused` (profile_raster also `--trace`), their
+     JSON line, iters/s, stage deltas and H100 roofline, and their
+     launches counted against what each must make;
   5. kernels: each kernel against its plain version, the fused forward two
      at the shapes of one serving view, the backward two at those of one
      training step (both blends also on the faint scene of one more
@@ -176,6 +205,7 @@ Run from the repository root:  python3 chip_smoke.py [--seed 0]
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
 import ctypes
@@ -191,7 +221,11 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.parse
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -210,7 +244,7 @@ from mtgs_torch.eval.pipeline import EvalConfig, evaluate_scene, export_eval_ima
 from mtgs_torch.models.convert import scene_from_state_dict
 from mtgs_torch.models.deform import init_deform_mlp
 from mtgs_torch.models.gaussians import init_skybox_node, node_capacity
-from mtgs_torch.models.scene_graph import DeformableParams
+from mtgs_torch.models.scene_graph import DeformableParams, node_segments
 from mtgs_torch.raster import (
     RasterizeConfig, binning, blend, cuda_build, expand_fused, expand_pairs, rasterize,
     segment_sum,
@@ -219,21 +253,24 @@ from mtgs_torch.raster.chunk_math import (
     ALPHA_MAX, ALPHA_MIN, LOG_T_EPS, NUM_GEOM, conic_coefficients, pixel_features, round8,
 )
 from mtgs_torch.raster.expand_fused import fused_fits
-from mtgs_torch.tools import campaign, train_scene
+from mtgs_torch.tools import bench_train, campaign, profile_raster, train_scene
 from mtgs_torch.tools import export as gaussian_export
 from mtgs_torch.tools import render as render_tool
 from mtgs_torch.train import checkpoint
 from mtgs_torch.train.optim import named_leaves
 from mtgs_torch.train.trainer import Batch, Trainer, loss_and_grads, render_view
+from mtgs_torch.utils import observability
+from mtgs_torch.viewer import server as viewer_server
 
 # the modules (the packages' attributes of these names are functions)
 rasterize_mod = importlib.import_module("mtgs_torch.raster.rasterize")
 pipeline_mod = importlib.import_module("mtgs_torch.eval.pipeline")
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit), shared with
+# tools/profile_raster.py's roofline
+PEAK_BYTES_PER_S = profile_raster.PEAK_BYTES_PER_S
+PEAK_F32_PER_S = profile_raster.PEAK_F32_PER_S
 
 BLEND_TOL = 1e-4        # f32 rounding of the same formulation
 BLEND_FLIP_TOL = 2e-3   # a pixel where an alpha = 1/255 or sigma = 0 cut-off flips
@@ -284,6 +321,11 @@ DINOV2_TOL = dict(atol=2e-4, rtol=1e-3)  # phase 13: the card's patch tokens aga
 SELF_TOL = 1e-5          # phase 13: lpips(x, x) = 0 and dinov2_sim(x, x) = 1
 EXPORT_PSNR_MIN = 30.0   # phase 13: a written JPEG against the uint8 array it encodes
 VITB = dict(D=768, heads=12, layers=12, hidden=3072, patch=14, grid=37)  # DINOv2 ViT-B/14
+VIEWER_STAMPS = ("0", "0.5")  # phase 14: the time slider's values requested
+VIEWER_WARMUP = 5        # phase 14: HTTP round trips before the timed ones, a rung
+VIEWER_REQUESTS = 30     # phase 14: timed requests a rung (and in-process splits)
+OBS_STEPS = 20           # phase 15: Trainer.train steps with a JsonlWriter
+OBS_TRACE_STEPS = 5      # phase 15: steps under observability.trace
 # the training start: the scene's alive rows jittered by these standard deviations
 JITTER = dict(means=0.05, features_dc=0.3, opacities=0.5)
 
@@ -2071,12 +2113,14 @@ def gaussian_exports(node, aux, out: Path) -> dict:
                        for fmt in ("ply", "splat", "point_cloud")})
 
 
-def phase_eval_export(card: str, dev, nuplan_res: dict, held_out: dict, profile: bool = False):
+def phase_eval_export(card: str, dev, nuplan_res: dict, held_out: dict, weights,
+                      profile: bool = False):
     """Phase 13: eval scoring and export on phase 11's trained road block
     (after phase 12, so that phases 4-12 run as before it was added).
     Seeded LPIPS-Alex and DINOv2 ViT-B/14 weights at the published widths
-    under build/chip_smoke/, pointed at by MTGS_LPIPS_WEIGHTS /
-    MTGS_DINOV2_WEIGHTS for this phase only; `eval_setup` on the run, then
+    written to `weights` (two paths under build/chip_smoke/, which the
+    caller removes after phase 14), pointed at by MTGS_LPIPS_WEIGHTS /
+    MTGS_DINOV2_WEIGHTS for phases 13-14 only; `eval_setup` on the run, then
     `evaluate_scene` with both metrics on over the held-out traversal and
     `export_eval_images` in its three modes, the launch counters zeroed just
     before and read just after (the two forward kernels once per view of
@@ -2096,151 +2140,145 @@ def phase_eval_export(card: str, dev, nuplan_res: dict, held_out: dict, profile:
     records, samples, batches = held_out["records"], held_out["samples"], held_out["batches"]
     work, n_ev = held_out["work"], len(batches)
 
-    out_dir = ROOT / "build" / "chip_smoke"
-    out_dir.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(EVAL_EXPORT_SEED)
     t0 = time.perf_counter()
-    lp_path, dv_path = out_dir / "lpips_alex_seeded.npz", out_dir / "dinov2_vitb14_seeded.npz"
+    lp_path, dv_path = weights
     np.savez(lp_path, **seeded_lpips_weights(rng))
     np.savez(dv_path, **seeded_dinov2_weights(rng, **VITB))
     weights_s = time.perf_counter() - t0
     export_root = work / "export"
-    try:
-        with weight_files(lp_path, dv_path):
-            params, aux, rcfg, _, _ = train_scene.eval_setup(held_out["run"], device=dev)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            off = evaluate_scene(params, aux, rcfg, batches,
-                                 eval_cfg=EvalConfig(lpips=False, dinov2=False), device=dev)
-            torch.cuda.synchronize()
-            eval_off_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            lp_params = lpips_mod.load_weights(lp_path, dev)
-            dv_weights = dinov2_mod.load_weights(dv_path, dev)
-            torch.cuda.synchronize()
-            load_s = time.perf_counter() - t0
-            n_params = sum(v.numel() for v in dv_weights.values() if isinstance(v, torch.Tensor))
-            lp_fn, dv_fn = lpips_mod.get_lpips(dev), dinov2_mod.get_dinov2(dev)
-            require(lp_fn is not None and dv_fn is not None, "a weight file was not found")
+    with weight_files(lp_path, dv_path):
+        params, aux, rcfg, _, _ = train_scene.eval_setup(held_out["run"], device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        off = evaluate_scene(params, aux, rcfg, batches,
+                             eval_cfg=EvalConfig(lpips=False, dinov2=False), device=dev)
+        torch.cuda.synchronize()
+        eval_off_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lp_params = lpips_mod.load_weights(lp_path, dev)
+        dv_weights = dinov2_mod.load_weights(dv_path, dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        n_params = sum(v.numel() for v in dv_weights.values() if isinstance(v, torch.Tensor))
+        lp_fn, dv_fn = lpips_mod.get_lpips(dev), dinov2_mod.get_dinov2(dev)
+        require(lp_fn is not None and dv_fn is not None, "a weight file was not found")
 
-            writes, warps = [], []
+        writes, warps = [], []
 
-            def timed_write(fn):
-                def call(path, img):
-                    t1 = time.perf_counter()
-                    p = fn(path, img)
-                    writes.append(dict(path=Path(p), img=img,
-                                       ms=1e3 * (time.perf_counter() - t1)))
-                    return p
-                return call
+        def timed_write(fn):
+            def call(path, img):
+                t1 = time.perf_counter()
+                p = fn(path, img)
+                writes.append(dict(path=Path(p), img=img,
+                                   ms=1e3 * (time.perf_counter() - t1)))
+                return p
+            return call
 
-            def timed_warp(fn):
-                def call(*a, **k):
-                    torch.cuda.synchronize()
-                    t1 = time.perf_counter()
-                    o = fn(*a, **k)
-                    torch.cuda.synchronize()
-                    warps.append(1e3 * (time.perf_counter() - t1))
-                    return o
-                return call
-
-            metas = [dict(raw_path=r.image_path, K_raw=r.intrinsic, dist=r.distortion,
-                          K_und=s["K"], raw_hw=(r.height, r.width),
-                          rel_path="/".join(Path(r.image_path).parts[-3:]))
-                     for r, s in zip(records, samples)]
-            written = {}
-            with contextlib.ExitStack() as stack:
-                stack.enter_context(wrapped(pipeline_mod, "write_jpeg", timed_write))
-                stack.enter_context(wrapped(pipeline_mod, "redistort_image", timed_warp))
+        def timed_warp(fn):
+            def call(*a, **k):
                 torch.cuda.synchronize()
-                # the eval and export path: kernel launches counted from here ...
-                cuda_build.reset_launches()
-                t0 = time.perf_counter()
-                on = evaluate_scene(params, aux, rcfg, batches,
-                                    eval_cfg=EvalConfig(lpips=True, dinov2=True), device=dev)
+                t1 = time.perf_counter()
+                o = fn(*a, **k)
                 torch.cuda.synchronize()
-                eval_s = time.perf_counter() - t0
-                eval_launches = dict(cuda_build.LAUNCHES)
-                t0 = time.perf_counter()
-                for mode in ("sequential", "sequential_with_gt", "nuplan"):
-                    written[mode] = export_eval_images(
-                        params, aux, rcfg, batches, export_root / mode, mode=mode,
-                        view_metas=metas, device=dev)
-                torch.cuda.synchronize()
-                export_s = time.perf_counter() - t0
-                launches = dict(cuda_build.LAUNCHES)
-                # ... to here
-            require_launches(eval_launches, dict(expand_fused=n_ev, blend_forward=n_ev),
-                             f"phase 13: the eval over {n_ev} views")
-            require_launches(launches, dict(expand_fused=4 * n_ev, blend_forward=4 * n_ev),
-                             f"phase 13: the eval and three exports of {n_ev} views")
-            new_keys = {"lpips", "dinov2_sim"}
-            new_keys |= {f"trv{int(b.travel_index)}_{k}" for b in batches for k in new_keys}
-            require(set(on) == set(off) | new_keys, f"eval keys {sorted(set(on) ^ set(off))}")
-            require(all(np.isfinite(on[k]) for k in new_keys),
-                    f"non-finite scores {({k: on[k] for k in new_keys})}")
-            diff = {k: abs(on[k] - off[k]) for k in off if k not in ("fps", "num_images")
-                    and not (np.isnan(on[k]) and np.isnan(off[k]))}
-            require(max(diff.values()) <= EVAL_EXPORT_TOL,
-                    f"metrics moved with LPIPS and DINOv2 on: {diff}")
+                warps.append(1e3 * (time.perf_counter() - t1))
+                return o
+            return call
 
-            with torch.no_grad():
-                view = render_view(params, aux, rcfg, batches[0], 10**9, device=dev)
-            scores = eval_export_scores((view, batches[0]), lp_params, dv_weights, dev, profile)
-            x = view["rgb_appearance"]
-            dv_self = dv_fn(x, x, batches[0].mask.squeeze())
-            require(abs(dv_self - 1.0) <= SELF_TOL, f"dinov2_sim(x, x) = {dv_self}")
-            scores["dinov2_sim_self"] = dv_self
-
-        # every written file decodes to its array's shape, PSNR >= the floor
-        by_path = {str(w["path"]): w for w in writes}
-        files = {}
-        for mode, paths in written.items():
-            rows = []
-            for p in paths:
-                if p.endswith("_gt.jpg"):  # the raw ground truth's symlink
-                    require(Path(p).is_symlink() and Path(p).resolve().exists(),
-                            f"{p}: the symlink does not resolve")
-                    rows.append(dict(path=p, symlink_to=os.readlink(p)))
-                    continue
-                w = by_path[p]
-                dec = image_io.read_image(p)
-                require(dec.shape == w["img"].shape, f"{p}: decoded {dec.shape}, wrote "
-                        f"{w['img'].shape}")
-                rows.append(dict(path=os.path.relpath(p, export_root), shape=list(dec.shape),
-                                 psnr=psnr_u8(dec, w["img"]), bytes=Path(p).stat().st_size))
-                require(rows[-1]["psnr"] >= EXPORT_PSNR_MIN,
-                        f"{p}: PSNR {rows[-1]['psnr']:.2f} dB against its array")
-            files[mode] = rows
-        want_shapes = dict(sequential=tuple(batches[0].image.shape),
-                           nuplan=(records[0].height, records[0].width, 3))
-        for mode, shape in want_shapes.items():
-            require(all(tuple(r["shape"]) == shape for r in files[mode]),
-                    f"{mode}: shapes {[r['shape'] for r in files[mode]]}, expected {shape}")
-        require(len(files["sequential_with_gt"]) == 3 * n_ev,
-                f"sequential_with_gt wrote {len(files['sequential_with_gt'])} files")
-
-        # the encoder against PIL's manifest (no PIL here)
-        mfx, manifest = jpeg_manifest()
-        sha = []
-        for entry in manifest["arrays"]:
-            img = mfx.make_array(entry)
-            data = image_io.encode_jpeg(img)
-            sha.append(dict(name=entry["name"],
-                            equal=hashlib.sha256(data).hexdigest() == entry["sha256"]))
-        require(all(e["equal"] for e in sha), f"encoder bytes off PIL's manifest: {sha}")
-        grad = mfx.make_array(manifest["arrays"][-1])
-        encode_ms = []
-        for _ in range(5):
+        metas = [dict(raw_path=r.image_path, K_raw=r.intrinsic, dist=r.distortion,
+                      K_und=s["K"], raw_hw=(r.height, r.width),
+                      rel_path="/".join(Path(r.image_path).parts[-3:]))
+                 for r, s in zip(records, samples)]
+        written = {}
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(wrapped(pipeline_mod, "write_jpeg", timed_write))
+            stack.enter_context(wrapped(pipeline_mod, "redistort_image", timed_warp))
+            torch.cuda.synchronize()
+            # the eval and export path: kernel launches counted from here ...
+            cuda_build.reset_launches()
             t0 = time.perf_counter()
-            image_io.encode_jpeg(grad)
-            encode_ms.append(1e3 * (time.perf_counter() - t0))
-        frames = [w["ms"] for w in writes if w["img"].shape[:2] == (1080, 1920)]
+            on = evaluate_scene(params, aux, rcfg, batches,
+                                eval_cfg=EvalConfig(lpips=True, dinov2=True), device=dev)
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t0
+            eval_launches = dict(cuda_build.LAUNCHES)
+            t0 = time.perf_counter()
+            for mode in ("sequential", "sequential_with_gt", "nuplan"):
+                written[mode] = export_eval_images(
+                    params, aux, rcfg, batches, export_root / mode, mode=mode,
+                    view_metas=metas, device=dev)
+            torch.cuda.synchronize()
+            export_s = time.perf_counter() - t0
+            launches = dict(cuda_build.LAUNCHES)
+            # ... to here
+        require_launches(eval_launches, dict(expand_fused=n_ev, blend_forward=n_ev),
+                         f"phase 13: the eval over {n_ev} views")
+        require_launches(launches, dict(expand_fused=4 * n_ev, blend_forward=4 * n_ev),
+                         f"phase 13: the eval and three exports of {n_ev} views")
+        new_keys = {"lpips", "dinov2_sim"}
+        new_keys |= {f"trv{int(b.travel_index)}_{k}" for b in batches for k in new_keys}
+        require(set(on) == set(off) | new_keys, f"eval keys {sorted(set(on) ^ set(off))}")
+        require(all(np.isfinite(on[k]) for k in new_keys),
+                f"non-finite scores {({k: on[k] for k in new_keys})}")
+        diff = {k: abs(on[k] - off[k]) for k in off if k not in ("fps", "num_images")
+                and not (np.isnan(on[k]) and np.isnan(off[k]))}
+        require(max(diff.values()) <= EVAL_EXPORT_TOL,
+                f"metrics moved with LPIPS and DINOv2 on: {diff}")
 
-        gexp = gaussian_exports(params.background, aux.background, work)
-    finally:
-        lp_path.unlink(missing_ok=True)
-        dv_path.unlink(missing_ok=True)
+        with torch.no_grad():
+            view = render_view(params, aux, rcfg, batches[0], 10**9, device=dev)
+        scores = eval_export_scores((view, batches[0]), lp_params, dv_weights, dev, profile)
+        x = view["rgb_appearance"]
+        dv_self = dv_fn(x, x, batches[0].mask.squeeze())
+        require(abs(dv_self - 1.0) <= SELF_TOL, f"dinov2_sim(x, x) = {dv_self}")
+        scores["dinov2_sim_self"] = dv_self
+
+    # every written file decodes to its array's shape, PSNR >= the floor
+    by_path = {str(w["path"]): w for w in writes}
+    files = {}
+    for mode, paths in written.items():
+        rows = []
+        for p in paths:
+            if p.endswith("_gt.jpg"):  # the raw ground truth's symlink
+                require(Path(p).is_symlink() and Path(p).resolve().exists(),
+                        f"{p}: the symlink does not resolve")
+                rows.append(dict(path=p, symlink_to=os.readlink(p)))
+                continue
+            w = by_path[p]
+            dec = image_io.read_image(p)
+            require(dec.shape == w["img"].shape, f"{p}: decoded {dec.shape}, wrote "
+                    f"{w['img'].shape}")
+            rows.append(dict(path=os.path.relpath(p, export_root), shape=list(dec.shape),
+                             psnr=psnr_u8(dec, w["img"]), bytes=Path(p).stat().st_size))
+            require(rows[-1]["psnr"] >= EXPORT_PSNR_MIN,
+                    f"{p}: PSNR {rows[-1]['psnr']:.2f} dB against its array")
+        files[mode] = rows
+    want_shapes = dict(sequential=tuple(batches[0].image.shape),
+                       nuplan=(records[0].height, records[0].width, 3))
+    for mode, shape in want_shapes.items():
+        require(all(tuple(r["shape"]) == shape for r in files[mode]),
+                f"{mode}: shapes {[r['shape'] for r in files[mode]]}, expected {shape}")
+    require(len(files["sequential_with_gt"]) == 3 * n_ev,
+            f"sequential_with_gt wrote {len(files['sequential_with_gt'])} files")
+
+    # the encoder against PIL's manifest (no PIL here)
+    mfx, manifest = jpeg_manifest()
+    sha = []
+    for entry in manifest["arrays"]:
+        img = mfx.make_array(entry)
+        data = image_io.encode_jpeg(img)
+        sha.append(dict(name=entry["name"],
+                        equal=hashlib.sha256(data).hexdigest() == entry["sha256"]))
+    require(all(e["equal"] for e in sha), f"encoder bytes off PIL's manifest: {sha}")
+    grad = mfx.make_array(manifest["arrays"][-1])
+    encode_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        image_io.encode_jpeg(grad)
+        encode_ms.append(1e3 * (time.perf_counter() - t0))
+    frames = [w["ms"] for w in writes if w["img"].shape[:2] == (1080, 1920)]
+
+    gexp = gaussian_exports(params.background, aux.background, work)
     res = dict(
         card=card, weights_s=weights_s, load_s=load_s, dinov2_params=n_params, views=n_ev,
         eval=on, eval_off=off, eval_max_diff=max(diff.values()), eval_s=eval_s,
@@ -2267,6 +2305,395 @@ def phase_eval_export(card: str, dev, nuplan_res: dict, held_out: dict, profile:
         f"{gexp['gaussians']}: {gexp['seconds_per_1e5']} s per 1e5; phase 13 took "
         f"{res['phase_s']:.1f} s")
     return res, launches
+
+
+def http_get(url: str):
+    """(status, headers, body) of one GET."""
+    try:
+        with urllib.request.urlopen(url, timeout=120) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def spread(xs) -> dict:
+    """Median and spread of a list of times."""
+    q = np.percentile(xs, [0, 25, 50, 75, 100])
+    return dict(median=float(q[2]), q25=float(q[1]), q75=float(q[3]), min=float(q[0]),
+                max=float(q[4]), n=len(xs))
+
+
+def view_query(record) -> dict:
+    """The viewer's camera query at a dataset camera: its position, and the
+    yaw and pitch of its view direction (the viewer's camera has no roll;
+    its forward is (-cos p cos y, -cos p sin y, -sin p))."""
+    c2w = np.asarray(record.c2w, np.float64)
+    fwd = -c2w[:3, 2]
+    pos = c2w[:3, 3]
+    return dict(px=repr(float(pos[0])), py=repr(float(pos[1])), pz=repr(float(pos[2])),
+                yaw=repr(float(np.arctan2(-fwd[1], -fwd[0]))),
+                pitch=repr(float(np.arcsin(np.clip(-fwd[2], -1.0, 1.0)))))
+
+
+def counting(reads: dict, name: str):
+    """A wrap for `wrapped` that counts the calls in reads[name]."""
+    def wrap(fn):
+        def call(*a, **kw):
+            reads[name] += 1
+            return fn(*a, **kw)
+        return call
+    return wrap
+
+
+def phase_viewer(card: str, dev, held_out: dict, weights):
+    """Phase 14: the viewer on phase 11's trained run. `viewer_from_run` (what
+    `python -m mtgs_torch.viewer.server --run` serves) on the card, served on
+    127.0.0.1:0 in a thread: the page, /meta, /render for every output x
+    both rungs x each traversal, `mean` and `null` x t in VIEWER_STAMPS at
+    a held-out camera (each a JPEG the port's decoder opens at the rung's
+    size, byte-equal to `ViewerServer.render` in-process, launching the
+    kernels of the path `fused_fits` picks once; the full rung's rgb frames
+    against the plain path within VIEW_TOL["rgb"]), /export byte-equal to
+    tools/export.py, 500 and 404; each rung timed over VIEWER_REQUESTS HTTP
+    round trips after VIEWER_WARMUP, and in-process split into render +
+    sync, colourise + copy and the q85 encode; `evaluate_scene` twice with
+    the phase-13 weight files, the loaders counted (the second call reads
+    no file); the q85 encoder against PIL's manifest. Returns (results, the
+    launches of the /render requests)."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    srv = viewer_server.viewer_from_run(held_out["run"], device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    W, H = srv.cfg.width, srv.cfg.height
+    n_gauss = node_segments(srv.params)[-1][2]
+    base_q = view_query(held_out["records"][0])
+    travels = [str(t) for t in srv.travels] + ["mean", "null"]
+    rungs = dict(full=("0", 1), lowres=("1", viewer_server.LOWRES_SCALE))
+    paths = {}
+    for rung, (_, scale) in rungs.items():
+        rc = srv._get_cfg("index", scale).raster_config()
+        fused = rc.fused and fused_fits(rc.max_intersections, rc.tiles_x * rc.tiles_y, n_gauss)
+        paths[rung] = dict(
+            fused=fused, size=[rc.width, rc.height], max_intersections=rc.max_intersections,
+            launches=dict(expand_fused=1, blend_forward=1) if fused else
+            dict(expand_pairs=1, rows_to_attr_major=1, blend_forward=1))
+    tmp = held_out["work"] / "viewer"
+    tmp.mkdir(parents=True, exist_ok=True)
+
+    http = srv.make_server(0, "127.0.0.1")
+    thread = threading.Thread(target=http.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{http.server_port}"
+    try:
+        status, headers, body = http_get(url + "/")
+        require(status == 200 and headers.get("Content-Type") == "text/html"
+                and body == viewer_server._PAGE.encode(), f"/: status {status}, not the page")
+        status, _, body = http_get(url + "/meta")
+        meta = json.loads(body)
+        require(status == 200 and meta["travels"] == srv.travels
+                and meta["init_cam"] == dict(pos=srv.init_pos, yaw=0.0, pitch=0.0)
+                and 0 < len(meta["cameras"]) <= viewer_server.MAX_CAMERAS
+                and meta["cameras"] == srv.cameras, f"/meta: status {status}, {str(meta)[:300]}")
+
+        frames = []
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        # the viewer's /render path: kernel launches counted from here ...
+        for rung, (lowres, scale) in rungs.items():
+            for travel, t, output in itertools.product(travels, VIEWER_STAMPS,
+                                                       viewer_server.OUTPUTS):
+                q = dict(base_q, travel=travel, t=t, output=output, lowres=lowres)
+                before = dict(cuda_build.LAUNCHES)
+                status, headers, body = http_get(url + "/render?" + urllib.parse.urlencode(q))
+                launches = launch_delta(before)
+                what = f"/render ({rung}, travel {travel}, t {t}, {output})"
+                require(status == 200 and headers.get("Content-Type") == "image/jpeg",
+                        f"{what}: status {status} {body[:300]!r}")
+                require_launches(launches, paths[rung]["launches"], what)
+                (tmp / "frame.jpg").write_bytes(body)
+                shape = image_io.read_image(tmp / "frame.jpg").shape
+                require(shape == (H // scale, W // scale, 3), f"{what}: decoded {shape}")
+                require(body == srv.render(q), f"{what}: the bytes differ from render() "
+                        "in-process")
+                row = dict(rung=rung, travel=travel, t=t, output=output, bytes=len(body))
+                if rung == "full" and output == "rgb":
+                    mode, sc, batch, _ = srv.request(q)
+                    got = srv.render_outputs(mode, sc, batch)
+                    with plain_path():
+                        want = srv.render_outputs(mode, sc, batch)
+                    err = float((srv._colorize(got, "rgb") - srv._colorize(want, "rgb"))
+                                .abs().max())
+                    row.update(rgb_err_vs_plain=err,
+                               psnr_vs_plain=float(masked_psnr(got["rgb"], want["rgb"])),
+                               covered=float((got["accumulation"] > 0.5).float().mean()))
+                    require(err <= VIEW_TOL["rgb"],
+                            f"{what}: kernel path vs plain path {err} > {VIEW_TOL['rgb']}")
+                    require(row["covered"] > 0.05, f"{what}: the camera sees little "
+                            f"({row['covered']:.3f} of the pixels covered)")
+                frames.append(row)
+        render_launches = dict(cuda_build.LAUNCHES)
+        # ... to here
+
+        timing = {}
+        for rung, (lowres, scale) in rungs.items():
+            q = dict(base_q, travel=travels[0], t="0", output="rgb", lowres=lowres)
+            full_url = url + "/render?" + urllib.parse.urlencode(q)
+            for _ in range(VIEWER_WARMUP):
+                http_get(full_url)
+            round_trip = []
+            for _ in range(VIEWER_REQUESTS):
+                t0 = time.perf_counter()
+                status, _, body = http_get(full_url)
+                round_trip.append(1e3 * (time.perf_counter() - t0))
+                require(status == 200, f"timed /render ({rung}): status {status}")
+            mode, sc, batch, kind = srv.request(q)
+            split = dict(render=[], colorize=[], encode=[])
+            for _ in range(VIEWER_REQUESTS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = srv.render_outputs(mode, sc, batch)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                frame = srv.frame(out, kind)  # the copy to the host waits for the device
+                t2 = time.perf_counter()
+                image_io.encode_jpeg(frame, quality=viewer_server.JPEG_QUALITY)
+                t3 = time.perf_counter()
+                for k, a, b in (("render", t0, t1), ("colorize", t1, t2), ("encode", t2, t3)):
+                    split[k].append(1e3 * (b - a))
+            timing[rung] = dict(size=paths[rung]["size"], fused=paths[rung]["fused"],
+                                http_ms=spread(round_trip),
+                                **{f"{k}_ms": spread(v) for k, v in split.items()})
+
+        exports = {}
+        for fmt, (fn, name) in dict(ply=(gaussian_export.export_ply, "scene.ply"),
+                                    splat=(gaussian_export.export_splat, "scene.splat"),
+                                    pcd=(gaussian_export.export_point_cloud,
+                                         "points.ply")).items():
+            status, headers, body = http_get(url + f"/export?format={fmt}")
+            want = fn(srv.params.background, srv.aux.background, tmp / name).read_bytes()
+            require(status == 200 and body == want, f"/export?format={fmt}: status {status}, "
+                    f"{len(body)} bytes against the export tool's {len(want)}")
+            exports[fmt] = len(body)
+        status, _, body = http_get(url + "/export?format=xyz")
+        require(status == 500 and body == b"unknown export format xyz",
+                f"/export?format=xyz: status {status} {body[:200]!r}")
+        status = http_get(url + "/nope")[0]
+        require(status == 404, f"/nope: status {status}")
+    finally:
+        http.shutdown()
+        http.server_close()
+        thread.join(timeout=60)
+    require(not thread.is_alive(), "the viewer's server thread did not stop")
+
+    # evaluate_scene twice with the weight files: the second reads neither
+    lpips_mod.cached_weights.cache_clear()
+    dinov2_mod.cached_weights.cache_clear()
+    reads = dict(lpips=0, dinov2=0)
+    evals = []
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(weight_files(*weights))
+        stack.enter_context(wrapped(lpips_mod, "load_weights", counting(reads, "lpips")))
+        stack.enter_context(wrapped(dinov2_mod, "load_weights", counting(reads, "dinov2")))
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = evaluate_scene(srv.params, srv.aux, srv.cfg, held_out["batches"],
+                                    device=dev)
+            torch.cuda.synchronize()
+            evals.append(dict(seconds=time.perf_counter() - t0, reads=dict(reads),
+                              result=result))
+    require([e["reads"] for e in evals] == [dict(lpips=1, dinov2=1)] * 2,
+            f"weight files read per evaluate_scene: {[e['reads'] for e in evals]} (want one "
+            "read of each, in the first call only)")
+    first, second = (e["result"] for e in evals)
+    require({"lpips", "dinov2_sim"} <= set(first), f"eval keys {sorted(first)}")
+    same = json.dumps({k: v for k, v in first.items() if k != "fps"}, sort_keys=True) == \
+        json.dumps({k: v for k, v in second.items() if k != "fps"}, sort_keys=True)
+    require(same, "the second evaluate_scene differs from the first")
+
+    # the viewer's encoder quality against PIL's manifest (no PIL here)
+    mfx, manifest = jpeg_manifest()
+    q85 = [dict(name=e["name"], equal=hashlib.sha256(image_io.encode_jpeg(
+        mfx.make_array(e), quality=viewer_server.JPEG_QUALITY)).hexdigest() == e["q85"]["sha256"])
+        for e in manifest["arrays"]]
+    require(all(e["equal"] for e in q85), f"q85 encoder bytes off PIL's manifest: {q85}")
+
+    res = dict(card=card, setup_s=setup_s, size=[W, H], gaussians=n_gauss, query=base_q,
+               travels=travels, paths=paths, frames=frames, launches=render_launches,
+               timing=timing, export_bytes=exports, manifest_q85=q85,
+               eval_twice=[dict(seconds=e["seconds"], reads=e["reads"]) for e in evals],
+               cameras=len(srv.cameras))
+    res["phase_s"] = time.perf_counter() - t_phase
+    full = [f for f in frames if "rgb_err_vs_plain" in f]
+    log(f"# viewer ({card}): viewer_from_run in {setup_s:.2f} s ({n_gauss} gaussians, travels "
+        f"{srv.travels}, {len(srv.cameras)} cameras); {len(frames)} /render requests, launches "
+        f"{render_launches}; paths {({k: v['fused'] for k, v in paths.items()})} (fused)")
+    log(f"# viewer ({card}): full-rung rgb against the plain path: max err "
+        f"{max(f['rgb_err_vs_plain'] for f in full):.3g}, min psnr "
+        f"{min(f['psnr_vs_plain'] for f in full):.2f} dB, covered "
+        f"{min(f['covered'] for f in full):.3f}-{max(f['covered'] for f in full):.3f}")
+    for rung, tm in timing.items():
+        log(f"# viewer ({card}): {rung} {tm['size'][0]}x{tm['size'][1]}: /render "
+            f"{tm['http_ms']['median']:.2f} ms median (IQR {tm['http_ms']['q25']:.2f}-"
+            f"{tm['http_ms']['q75']:.2f}, {tm['http_ms']['n']} requests); in-process render "
+            f"{tm['render_ms']['median']:.2f}, colourise + copy {tm['colorize_ms']['median']:.2f},"
+            f" encode q{viewer_server.JPEG_QUALITY} {tm['encode_ms']['median']:.2f} ms")
+    log(f"# viewer ({card}): evaluate_scene with LPIPS and DINOv2 {evals[0]['seconds']:.3f} s "
+        f"then {evals[1]['seconds']:.3f} s; loads {[e['reads'] for e in evals]}; exports "
+        f"{exports} bytes; q85 manifest {sum(e['equal'] for e in q85)}/{len(q85)} equal; phase 14 "
+        f"took {res['phase_s']:.1f} s")
+    return res, render_launches
+
+
+def bench_launches(fused: bool, steps: int, gt_views: int, gt_fused: bool) -> dict:
+    """The launches `tools/bench_train.py` must make: the ground truth's
+    renders (the path `fused_fits` picks at its buffer) and `steps`
+    training steps on the fused or the classic path."""
+    want = collections.Counter()
+    for k in ("expand_fused",) if gt_fused else ("expand_pairs", "rows_to_attr_major"):
+        want[k] += gt_views
+    want["blend_forward"] += gt_views
+    for k in FUSED_KERNELS if fused else ("expand_pairs", "rows_to_attr_major", "blend_forward",
+                                          "blend_backward", "dense_segment_sum",
+                                          "attr_major_to_rows"):
+        want[k] += steps
+    return dict(want)
+
+
+def profile_launches(fused: bool, calls: int, traced: int) -> dict:
+    """The launches `tools/profile_raster.py` must make: each stage `calls`
+    times (a warm-up and the timed iterations), the roofline's one gather,
+    and `traced` more forward + backward steps."""
+    n, fb = calls, calls + traced
+    if fused:  # stages +expand, +pair sort, full forward, fwd+bwd; the roofline's gather
+        return dict(expand_fused=2 * n + n + fb + 1, blend_forward=n + fb,
+                    blend_backward=fb, dense_segment_sum=fb)
+    # stages projection+binning, full forward, fwd+bwd; the roofline's binning and slab
+    return dict(expand_pairs=2 * n + fb + 1, rows_to_attr_major=n + fb + 1,
+                blend_forward=n + fb, blend_backward=fb, dense_segment_sum=fb,
+                attr_major_to_rows=fb)
+
+
+def phase_observability(args, card: str, dev, state_sd, batches):
+    """Phase 15: observability and the bench tools. `Trainer.train(OBS_STEPS,
+    writer=JsonlWriter)` on phase 4's scene from phase 6's start (every
+    metric key, and step_ms / rays_per_s from the second step, in the file;
+    the fused kernels once per step); `observability.trace` around
+    OBS_TRACE_STEPS more steps and `summarize_trace`, whose entries must name
+    the four fused kernels as the CUDA sources do, once per step as counted;
+    `tools/bench_train.py` and `tools/profile_raster.py` at their defaults,
+    classic and `--fused` (the latter with `--trace`), their launches
+    counted. Returns (results, the launches of its runs)."""
+    t_phase = time.perf_counter()
+    out = ROOT / "build" / "chip_smoke" / "observability"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    total = collections.Counter()
+
+    cfg = train_config(args)
+    params, aux = scene_from_state_dict(*state_sd, device=dev)
+    trainer = Trainer(cfg, params, aux, itertools.cycle(batches), seed=args.seed, device=dev)
+    writer = observability.JsonlWriter(str(out / "train.jsonl"), steps_per_log=1)
+    torch.cuda.synchronize()
+    before = dict(cuda_build.LAUNCHES)
+    t0 = time.perf_counter()
+    history = trainer.train(OBS_STEPS, writer=writer)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    writer.close()
+    launches = launch_delta(before)
+    total.update(launches)
+    require_launches(launches, dict.fromkeys(FUSED_KERNELS, OBS_STEPS),
+                     f"Trainer.train({OBS_STEPS}, writer=...)")
+    rows = [json.loads(line) for line in (out / "train.jsonl").read_text().splitlines()]
+    keys = set(history[0])
+    require([r["step"] for r in rows] == list(range(OBS_STEPS)),
+            f"the writer logged steps {[r['step'] for r in rows]}")
+    for i, r in enumerate(rows):
+        want = keys | {"step"} | ({"step_ms", "rays_per_s"} if i else set())
+        require(set(r) == want, f"logged step {i}: keys {sorted(set(r) ^ want)} differ")
+        require(all(np.isfinite(v) for v in r.values()), f"logged step {i}: {r}")
+
+    trace_dir = out / "trace"
+    before = dict(cuda_build.LAUNCHES)
+    t0 = time.perf_counter()
+    with observability.trace(str(trace_dir)) as tr:
+        trainer.train(OBS_TRACE_STEPS)
+    trace_s = time.perf_counter() - t0
+    tlaunches = launch_delta(before)
+    total.update(tlaunches)
+    top = observability.summarize_trace(str(trace_dir), top=10 ** 6, iters=OBS_TRACE_STEPS)
+    traced = {}
+    for k in FUSED_KERNELS:
+        hits = [(ms, n, name) for ms, n, name in top if KERNEL_SYMBOLS[k] in name]
+        traced[k] = dict(ms_per_step=sum(h[0] for h in hits), per_step=sum(h[1] for h in hits),
+                         names=[h[2] for h in hits])
+        require(hits and traced[k]["per_step"] * OBS_TRACE_STEPS == tlaunches[k]
+                == OBS_TRACE_STEPS, f"trace: {k} ({KERNEL_SYMBOLS[k]}) {traced[k]}, counted "
+                f"{tlaunches[k]} launches in {OBS_TRACE_STEPS} steps")
+
+    bench = {}
+    n_tiles = -(-960 // 32) * -(-540 // 32)
+    gt_fused = fused_fits(bench_train.gt_capacity(960, 540), n_tiles, 780_000 + 20_000)
+    for label, argv in (("classic", []), ("fused", ["--fused"])):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        before = dict(cuda_build.LAUNCHES)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            bench_train.main(argv)
+        seconds = time.perf_counter() - t0
+        launches = launch_delta(before)
+        total.update(launches)
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        require(rec["unit"] == "iters/s" and rec["value"] > 0
+                and rec["device"] == torch.cuda.get_device_name(0)
+                and rec["fused"] == (label == "fused"), f"bench_train {argv}: {rec}")
+        require_launches(launches, bench_launches(label == "fused", 21, 6, gt_fused),
+                         f"bench_train {argv}")
+        bench[label] = dict(rec, seconds=seconds, launches=launches)
+        log(f"# bench_train {' '.join(argv) or '(defaults)'} ({card}): {rec['value']} iters/s "
+            f"({1e3 / rec['value']:.2f} ms/step), {seconds:.1f} s with the scene; launches "
+            f"{launches}")
+
+    raster = {}
+    for label, argv in (("classic", []), ("fused", ["--fused", "--trace",
+                                                    str(out / "raster_trace")])):
+        buf = io.StringIO()
+        before = dict(cuda_build.LAUNCHES)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            result = profile_raster.main(argv)
+        seconds = time.perf_counter() - t0
+        launches = launch_delta(before)
+        total.update(launches)
+        printed = buf.getvalue()
+        for line in printed.splitlines():
+            log(f"# profile_raster {label}: {line}")
+        require("H100" in printed and "x off" in printed, f"profile_raster {argv}: no roofline")
+        require_launches(launches, profile_launches(label == "fused", 11,
+                                                    6 if "--trace" in argv else 0),
+                         f"profile_raster {argv}")
+        raster[label] = dict(result, seconds=seconds, launches=launches)
+
+    total = {k: total[k] for k in KERNELS}
+    res = dict(card=card, train_steps=OBS_STEPS, train_s=train_s, logged_rows=len(rows),
+               step_ms_logged=[r.get("step_ms") for r in rows], last_row=rows[-1],
+               trace=dict(steps=OBS_TRACE_STEPS, seconds=trace_s, path=os.path.relpath(
+                   tr.path, ROOT), bytes=os.path.getsize(tr.path), kernels=traced,
+                   top=top[:25]),
+               bench_train=bench, profile_raster=raster, launches=total)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"# observability ({card}): Trainer.train({OBS_STEPS}, writer=JsonlWriter) in "
+        f"{train_s:.2f} s, {len(rows)} rows, step_ms (EMA) at the last step "
+        f"{rows[-1]['step_ms']:.2f}; trace of {OBS_TRACE_STEPS} steps "
+        f"({res['trace']['bytes']} bytes) in {trace_s:.2f} s: "
+        f"{({k: round(v['ms_per_step'], 4) for k, v in traced.items()})} ms a step")
+    for ms, n, name in top[:12]:
+        log(f"#   {ms:9.3f} ms  x{n:<4d} {name[:100]}")
+    log(f"# observability ({card}): phase 15 took {res['phase_s']:.1f} s")
+    return res, total
 
 
 def trained_scene_grads(trainer, cfg, batch, label: str = "campaign",
@@ -2653,14 +3080,7 @@ def forward_timing(a, kw, plain_reps: int = 5, term_flips: bool = False):
     causes, diag = flip_causes(got, want, a, kw, flagged)
     require(not causes["none"], f"blend_forward: {causes['none']} of the {flips} pixels above "
             f"{BLEND_TOL} show neither a termination nor a cut-off flip: {diag}")
-    # the slab columns the early exit must read: per tile, those up to the
-    # furthest intersection any of its pixels evaluates
-    b_bytes = 4 * ((NUM_GEOM + c_total) * stats["pairs_read"] + 3 * T
-                   + (c_total + 1) * n_pix)
-    # per evaluated (pixel, intersection) inside the splat's 1/255 support
-    # (outside it none is needed): sigma 11, exp and scale 3; per composited
-    # one: clamp, log1p, sum, exp, weight, c_total FMAs, log sum
-    b_ops = 14 * stats["pair_support"] + (6 + 2 * c_total) * stats["pair_blends"]
+    b_bytes, b_ops = blend.blend_forward_work(stats, c_total, T, n_pix)
     b_bound_bytes = 1e3 * b_bytes / PEAK_BYTES_PER_S
     b_bound_ops = 1e3 * b_ops / PEAK_F32_PER_S
     row = dict(
@@ -2735,20 +3155,7 @@ def backward_timing(a, kw):
     err = float(errs.max())
     require(err <= GRAD_TOL and not got[nw:].any(),
             f"blend_backward: row errors {errs.tolist()} (tol {GRAD_TOL})")
-    n_pix = a[6].numel()
-    # read: the slab columns up to each tile's last evaluated one, the
-    # ranges, rgb, t_final and both cotangents; written: the whole
-    # zero-initialised gradient slab
-    bb_bytes = 4 * (nw * stats["pairs_read"] + 3 * T + (2 * c_total + 2) * n_pix
-                    + got.numel())
-    # per evaluated pair inside the splat's 1/255 support the forward's 14
-    # (sigma, exp, scale: a pixel outside it needs no evaluation, as the
-    # kernel's support boxes show); per composited one: clamp, log1p, log
-    # sum, exp and weight 5, gdot 2 c, the running w gdot, 1 / (1 - alpha)
-    # and ga 10, the colour sums 2 c, and where alpha was not clamped
-    # g_sigma with the five centred moments 13 and g_opac 2
-    bb_ops = (14 * stats["pair_support"] + (30 + 4 * c_total) * stats["pair_blends"]
-              - 15 * stats["pair_clamped"])
+    bb_bytes, bb_ops = blend.blend_backward_work(stats, c_total, T, a[6].numel(), got.numel())
     bb_bound_bytes = 1e3 * bb_bytes / PEAK_BYTES_PER_S
     bb_bound_ops = 1e3 * bb_ops / PEAK_F32_PER_S
     row = dict(
@@ -3156,20 +3563,28 @@ def main(argv=None):
     campaign_res, campaign_captured, campaign_launches, campaign_trainer, campaign_scene = \
         phase_campaign(card, dev)
     nuplan_res, nuplan_launches, held_out = phase_nuplan(card, dev)
+    weights = (ROOT / "build" / "chip_smoke" / "lpips_alex_seeded.npz",
+               ROOT / "build" / "chip_smoke" / "dinov2_vitb14_seeded.npz")
+    weights[0].parent.mkdir(parents=True, exist_ok=True)
     try:
         deform_res, deform_launches, deform_trainers = phase_deformables(
             card, dev, campaign_scene, campaign_res)
         eval_export_res, eval_export_launches = phase_eval_export(
-            card, dev, nuplan_res, held_out, profile=args.profile)
+            card, dev, nuplan_res, held_out, weights, profile=args.profile)
+        viewer_res, viewer_launches = phase_viewer(card, dev, held_out, weights)
     finally:
         shutil.rmtree(held_out["work"], ignore_errors=True)
+        for path in weights:
+            path.unlink(missing_ok=True)
     del held_out
     del campaign_scene
+    obs_res, obs_launches = phase_observability(args, card, dev, state_sd, train_batches)
     by_path = dict(serving=main_res["launches"], training=train_res["launches"],
                    classic_renders=classic_launches, classic_step=classic_step_launches,
                    render_tool=render_res["launches"], growth=growth_launches,
                    campaign=campaign_launches, nuplan=nuplan_launches,
-                   eval_export=eval_export_launches, **deform_launches)
+                   eval_export=eval_export_launches, viewer=viewer_launches,
+                   observability=obs_launches, **deform_launches)
     serving_captured = {}  # the kernel wrappers' arguments in one serving view
     with capturing(serving_captured), torch.no_grad():
         render_view(params, aux, cfg, batch, 10**9, device=dev)
@@ -3202,7 +3617,8 @@ def main(argv=None):
         summary = dict(card=card, build_seconds=build_s, goldens=goldens, main=main_res,
                        train=train_res, classic=classic_res, render_tool=render_res,
                        growth=growth_res, campaign=campaign_res, nuplan=nuplan_res,
-                       eval_export=eval_export_res, deformables=deform_res, kernels=kernels, ab=ab,
+                       eval_export=eval_export_res, deformables=deform_res, viewer=viewer_res,
+                       observability=obs_res, kernels=kernels, ab=ab,
                        profile=prof,
                        seconds=time.perf_counter() - t_start)
         (args.out / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

@@ -13,9 +13,13 @@ has an obvious counterpart:
                optimisation, the training step and loop, checkpoints
     data/      the synthetic road block; the nuPlan parser, sample loading
                and loaders, with the port's own JPEG/PNG decoders (host C++)
-    utils/     point-cloud IO and filtering
+    utils/     point-cloud IO and filtering; metric writers, step timing and
+               traces (observability)
     eval/      metric suite + the per-traversal eval pipeline
-    tools/     rendering, the training campaign, per-road-block training
+    tools/     rendering, the training campaign, per-road-block training,
+               gaussian export, the train-step bench and the rasterizer
+               stage profile
+    viewer/    the HTTP viewer of a trained run
 
 This package imports torch, numpy and scipy only — never jax, mtgs_tpu or PIL.
 Entry points take an explicit `device` that defaults to "cuda" and raise

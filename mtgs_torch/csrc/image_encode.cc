@@ -5,8 +5,9 @@
 // compiler on first use.
 //
 // The encoder writes the bytes PIL (libjpeg-turbo) writes for
-// `Image.fromarray(rgb).save(path)` to a .jpg path, that is libjpeg's
-// defaults, step for step:
+// `Image.fromarray(rgb).save(path, quality=q)` to a .jpg path, that is
+// libjpeg's defaults at the given quality (75 when PIL is given none), step
+// for step:
 //   * the fixed-point RGB->YCbCr tables of jccolor.c (SCALEBITS 16, the
 //     0.5 - epsilon rounding of Cb and Cr);
 //   * h2v2 chroma downsampling (jcsample.c) with the bias alternating 1, 2
@@ -16,7 +17,8 @@
 //   * the accurate integer forward DCT of jfdctint.c (CONST_BITS 13,
 //     PASS1_BITS 2, results scaled by 8);
 //   * libjpeg-turbo's reciprocal quantization (jcdctmgr.c,
-//     compute_reciprocal) by the standard tables scaled to quality 75;
+//     compute_reciprocal) by the standard tables scaled to the quality
+//     (jpeg_quality_scaling, force_baseline);
 //   * the dummy blocks of a partial MCU (jccoefct.c): zero AC, the DC of the
 //     block before;
 //   * the standard Huffman tables (jstdhuff.c), no restart markers, the
@@ -58,7 +60,6 @@ const int kChromaQuant[64] = {
     24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
-const int kQuality = 75;  // libjpeg's default, which PIL keeps
 
 // jstdhuff.c: code counts by length 1..16, then the symbols
 const uint8_t kDcLumaBits[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
@@ -332,10 +333,14 @@ int64_t mtgs_jpeg_bound(int height, int width) {
   return 1024 + mcus * 6 * 420;  // every code at its longest, every byte stuffed
 }
 
-// RGB [height, width, 3] uint8 -> baseline JPEG bytes in `out`; returns the
-// length, or -1 with a message in `err`.
-int64_t mtgs_jpeg_encode(const uint8_t* rgb, int height, int width, uint8_t* out, int64_t cap,
-                         char* err, int errlen) {
+// RGB [height, width, 3] uint8 -> baseline JPEG bytes at `quality` (1..100)
+// in `out`; returns the length, or -1 with a message in `err`.
+int64_t mtgs_jpeg_encode(const uint8_t* rgb, int height, int width, int quality, uint8_t* out,
+                         int64_t cap, char* err, int errlen) {
+  if (quality < 1 || quality > 100) {
+    set_error(err, errlen, "quality " + std::to_string(quality) + " outside 1..100");
+    return -1;
+  }
   if (height < 1 || width < 1 || height > 65535 || width > 65535) {
     set_error(err, errlen, "image size " + std::to_string(height) + "x" +
                                std::to_string(width) + " outside 1..65535");
@@ -399,8 +404,8 @@ int64_t mtgs_jpeg_encode(const uint8_t* rgb, int height, int width, uint8_t* out
   }
 
   int qt[2][64];
-  quant_table(kLumaQuant, kQuality, qt[0]);
-  quant_table(kChromaQuant, kQuality, qt[1]);
+  quant_table(kLumaQuant, quality, qt[0]);
+  quant_table(kChromaQuant, quality, qt[1]);
   Divisor div[2][64];
   for (int t = 0; t < 2; ++t)
     for (int i = 0; i < 64; ++i) div[t][i] = reciprocal(qt[t][i] << 3);

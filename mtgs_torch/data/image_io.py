@@ -114,7 +114,7 @@ def _enc_lib() -> ctypes.CDLL:
             u8p, i64, i32, cp = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_char_p
             lib.mtgs_jpeg_bound.argtypes = [i32, i32]
             lib.mtgs_jpeg_bound.restype = i64
-            lib.mtgs_jpeg_encode.argtypes = [u8p, i32, i32, u8p, i64, cp, i32]
+            lib.mtgs_jpeg_encode.argtypes = [u8p, i32, i32, i32, u8p, i64, cp, i32]
             lib.mtgs_jpeg_encode.restype = i64
             lib.mtgs_resize_u8.argtypes = [u8p, i32, i32, i32, u8p, i32, i32, cp, i32]
             lib.mtgs_resize_u8.restype = i32
@@ -344,28 +344,31 @@ def resize(img: np.ndarray, scale: float, nearest: bool = False) -> np.ndarray:
     return out[..., 0] if img.ndim == 2 else out
 
 
-def encode_jpeg(rgb_u8: np.ndarray) -> bytes:
-    """The baseline JPEG bytes PIL writes for an RGB uint8 [H, W, 3] image at
-    its defaults (quality 75, 4:2:0)."""
+def encode_jpeg(rgb_u8: np.ndarray, quality: int = 75) -> bytes:
+    """The baseline JPEG bytes PIL writes for an RGB uint8 [H, W, 3] image
+    with `save(..., quality=quality)` (4:2:0; PIL's default quality is 75)."""
     img = np.asarray(rgb_u8)
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"encode_jpeg takes RGB uint8 [H, W, 3], got {img.dtype} {img.shape}")
+    if not 1 <= int(quality) <= 100:
+        raise ValueError(f"encode_jpeg: quality {quality} outside 1..100")
     img = np.ascontiguousarray(img)
     h, w = img.shape[:2]
     lib = _enc_lib()
     out = np.empty(lib.mtgs_jpeg_bound(h, w), np.uint8)
     err = ctypes.create_string_buffer(_ERR_LEN)
-    n = lib.mtgs_jpeg_encode(_ptr(img), h, w, _ptr(out), out.size, err, _ERR_LEN)
+    n = lib.mtgs_jpeg_encode(_ptr(img), h, w, int(quality), _ptr(out), out.size, err, _ERR_LEN)
     if n < 0:
         raise ValueError(f"encode_jpeg: {err.value.decode()}")
     return out[:n].tobytes()
 
 
-def write_jpeg(path, rgb_u8: np.ndarray) -> Path:
+def write_jpeg(path, rgb_u8: np.ndarray, quality: int = 75) -> Path:
     """Write an RGB uint8 [H, W, 3] image as the JPEG file
-    `PIL.Image.fromarray(rgb_u8).save(path)` writes for a .jpg path."""
+    `PIL.Image.fromarray(rgb_u8).save(path, quality=quality)` writes for a
+    .jpg path."""
     path = Path(path)
-    path.write_bytes(encode_jpeg(rgb_u8))
+    path.write_bytes(encode_jpeg(rgb_u8, quality))
     return path
 
 

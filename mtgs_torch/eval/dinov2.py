@@ -33,6 +33,7 @@ Canonical `.npz` keys (the JAX package's, so one file serves both):
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import zipfile
@@ -189,6 +190,13 @@ def load_weights(path=None, device="cuda") -> Optional[Dict]:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def cached_weights(path: str, device: torch.device) -> Dict:
+    """`load_weights` once per (resolved path, device) in a process, as the
+    JAX package loads its network once; a load that raises is not cached."""
+    return load_weights(path, device)
+
+
 def _resize_center_crop(img: np.ndarray, nearest: bool) -> np.ndarray:
     """Short-side resize to 518 then center crop 518x518 (HW or HWC), as the
     JAX package does it through PIL: RGB clipped to [0, 1] and truncated to
@@ -222,11 +230,13 @@ def get_dinov2(device="cuda") -> Optional[Callable[..., Optional[float]]]:
     """A (pred_hwc, gt_hwc, mask_hw=None) -> similarity callable on
     `device` if a weight file exists (`weights_path()`), else None; the
     callable returns None for a fully masked view. Raises without a card
-    unless the CPU is asked for, and on a weight file that does not load."""
+    unless the CPU is asked for, and on a weight file that does not load.
+    The file is read once per process (`cached_weights`)."""
     dev = resolve_device(device)
-    weights = load_weights(device=dev)
-    if weights is None:
+    path = weights_path()
+    if not os.path.exists(path):
         return None
+    weights = cached_weights(os.path.realpath(path), dev)
 
     def features(img) -> torch.Tensor:
         x = _resize_center_crop(_host(img), nearest=False)

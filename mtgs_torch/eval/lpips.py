@@ -26,6 +26,7 @@ Canonical `.npz` keys (the JAX package's, so one file serves both):
 
 from __future__ import annotations
 
+import functools
 import os
 import zipfile
 from typing import Callable, Dict, Optional
@@ -126,15 +127,23 @@ def weights_path() -> str:
     return os.environ.get("MTGS_LPIPS_WEIGHTS", DEFAULT_WEIGHTS)
 
 
+@functools.lru_cache(maxsize=None)
+def cached_weights(path: str, device: torch.device) -> Dict[str, torch.Tensor]:
+    """`load_weights` once per (resolved path, device) in a process, as the
+    JAX package loads its network once; a load that raises is not cached."""
+    return load_weights(path, device)
+
+
 def get_lpips(device="cuda") -> Optional[Callable[..., float]]:
     """A (pred_hwc, gt_hwc) -> float callable on `device` if a weight file
     exists (`weights_path()`), else None. Raises without a card unless the
-    CPU is asked for, and on a weight file that does not load."""
+    CPU is asked for, and on a weight file that does not load. The file is
+    read once per process (`cached_weights`)."""
     dev = resolve_device(device)
     path = weights_path()
     if not os.path.exists(path):
         return None
-    params = load_weights(path, dev)
+    params = cached_weights(os.path.realpath(path), dev)
 
     def run(pred_hwc, gt_hwc) -> float:
         with torch.no_grad():

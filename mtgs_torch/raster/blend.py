@@ -219,6 +219,40 @@ def blend_forward_plain(slab_t, tile_offsets, tile_heads, tile_counts, tile_nchu
     return rgb, torch.exp(log_t_out)
 
 
+def blend_forward_work(stats: dict, c_total: int, tiles: int, n_pix: int):
+    """(bytes, operations) the forward blend of some inputs needs at least,
+    from `blend_forward_plain`'s `stats` on them (T tiles, n_pix = T * PIX
+    pixels). Bytes: the slab columns the early exit must read (per tile,
+    those up to the furthest intersection any of its pixels evaluates),
+    the ranges, and rgb and t_final written once. Operations: per
+    evaluated (pixel, intersection) inside the splat's 1/255 support
+    (outside it none is needed) sigma 11, exp and scale 3; per composited
+    one clamp, log1p, sum, exp, weight, c_total FMAs, log sum."""
+    nbytes = 4 * ((NUM_GEOM + c_total) * stats["pairs_read"] + 3 * tiles
+                  + (c_total + 1) * n_pix)
+    ops = 14 * stats["pair_support"] + (6 + 2 * c_total) * stats["pair_blends"]
+    return nbytes, ops
+
+
+def blend_backward_work(stats: dict, c_total: int, tiles: int, n_pix: int, grad_elems: int):
+    """(bytes, operations) the backward blend's replay of some inputs needs
+    at least, from `blend_forward_plain`'s `stats` on the same inputs (the
+    pairs the replay reaches). Bytes: read the slab columns up to each
+    tile's last evaluated one, the ranges, rgb, t_final and both
+    cotangents; write the whole zero-initialised gradient slab
+    (`grad_elems`). Operations: per evaluated pair inside the splat's 1/255
+    support the forward's 14 (sigma, exp, scale: a pixel outside it needs
+    no evaluation, as the kernel's support boxes show); per composited
+    one: clamp, log1p, log sum, exp and weight 5, gdot 2 c, the running w
+    gdot, 1 / (1 - alpha) and ga 10, the colour sums 2 c, and where alpha
+    was not clamped g_sigma with the five centred moments 13 and g_opac 2."""
+    nw = NUM_GEOM + c_total
+    nbytes = 4 * (nw * stats["pairs_read"] + 3 * tiles + (2 * c_total + 2) * n_pix + grad_elems)
+    ops = (14 * stats["pair_support"] + (30 + 4 * c_total) * stats["pair_blends"]
+           - 15 * stats["pair_clamped"])
+    return nbytes, ops
+
+
 def _check_backward_inputs(slab_t, ranges, rgb_tiles, t_final, g_rgb, g_t, c_total, P):
     _check_inputs(slab_t, ranges, c_total)
     T = ranges[0].shape[0]

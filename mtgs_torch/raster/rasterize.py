@@ -85,15 +85,11 @@ class RasterizeConfig:
         return "D" in self.render_mode
 
 
-def _gather_fused_fwd(config: RasterizeConfig, table, packed_in, counts_in, depths):
-    """Depth sort, pair expansion and pair sort. Returns a dict: slab_t
-    [W8, cap] tile-sorted, key_s [I] sorted keys, order [I] (the slot of
-    each sorted position), src [I] (each slot's owner in depth order),
-    perm [n] (the depth order) and total (1-element, untruncated)."""
-    n, nw = table.shape
-    I = config.max_intersections
-    num_tiles = config.tiles_x * config.tiles_y
-
+def _depth_sort(table, packed_in, counts_in, depths):
+    """The fused gather's first stage: perm [n] (the depth order), the
+    depth-sorted packed spans and exclusive pair offsets [n], the pair
+    total (1-element, untruncated) and the depth-sorted attribute-major
+    table [nw, n]."""
     # stable sort == the JAX (depth_key, iota) two-key sort; zero-pair
     # gaussians go last so every sorted index < n_live owns >= 1 pair
     depth_key = torch.where(counts_in > 0, depths, torch.full_like(depths, float("inf")))
@@ -104,14 +100,33 @@ def _gather_fused_fwd(config: RasterizeConfig, table, packed_in, counts_in, dept
     offsets = (csum - counts).to(torch.int32)
     total = csum[-1:].to(torch.int32)
     table_am = table[perm].T.contiguous()  # [nw, n] depth-sorted
+    return perm, packed, offsets, total, table_am
 
-    key, src, attrs = expand_fused(table_am, offsets, packed, total, I,
-                                   tiles_x=config.tiles_x, num_tiles=num_tiles)
+
+def _pair_sort(key, attrs, max_intersections: int):
+    """The fused gather's last stage: the expansion's slots sorted by key
+    (tile, then depth). Returns key_s [I], order [I] (the slot of each
+    sorted position) and the tile-sorted slab [round8(nw), cap]."""
+    I = max_intersections
     # keys are unique (the slot is in the low bits): any sort is exact
     key_s, order = torch.sort(key)
-    slab_t = torch.zeros((round8(nw), padded_capacity(I)), dtype=torch.float32,
-                         device=table.device)
+    slab_t = torch.zeros((attrs.shape[0], padded_capacity(I)), dtype=torch.float32,
+                         device=attrs.device)
     slab_t[:, :I] = attrs[:, order]
+    return key_s, order, slab_t
+
+
+def _gather_fused_fwd(config: RasterizeConfig, table, packed_in, counts_in, depths):
+    """Depth sort, pair expansion and pair sort. Returns a dict: slab_t
+    [W8, cap] tile-sorted, key_s [I] sorted keys, order [I] (the slot of
+    each sorted position), src [I] (each slot's owner in depth order),
+    perm [n] (the depth order) and total (1-element, untruncated)."""
+    I = config.max_intersections
+    perm, packed, offsets, total, table_am = _depth_sort(table, packed_in, counts_in, depths)
+    key, src, attrs = expand_fused(table_am, offsets, packed, total, I,
+                                   tiles_x=config.tiles_x,
+                                   num_tiles=config.tiles_x * config.tiles_y)
+    key_s, order, slab_t = _pair_sort(key, attrs, I)
     return dict(slab_t=slab_t, key_s=key_s, order=order, src=src, perm=perm, total=total)
 
 

@@ -1,2 +1,3 @@
 """Command-level tools; port of `mtgs_tpu/tools/` (the renderers, the
-training campaign and the per-road-block trainer so far)."""
+training campaign, the per-road-block trainer, gaussian export, the
+train-step bench and the rasterizer stage profile so far)."""

@@ -47,6 +47,7 @@ from mtgs_torch.train.camera_opt import apply_camera_opt, camera_opt_penalty
 from mtgs_torch.train.optim import (
     AdamState, OptimConfig, adam_init, adam_update, default_groups, named_leaves,
 )
+from mtgs_torch.utils.observability import StepTimer
 
 
 # the stacked node kinds: a leading instance axis, refined one instance at a time
@@ -576,14 +577,19 @@ class Trainer:
         self.cfg = base.replace(width=w, height=h, max_intersections=isect)
         self._cur_scale = scale
 
-    def train(self, num_steps: int, log_every: int = 100, callback=None):
+    def train(self, num_steps: int, log_every: int = 100, callback=None, writer=None):
         """Run `num_steps` steps; refine and reset on the reference's
         schedule, switching ladder stages at their start steps and turning
         deformation on at deform_enable_step (at once on a resume past
         it). Returns the per-step metrics (device tensors). `loop_stats`
         holds this call's host seconds of step dispatch, refine (with its
-        syncs) and the callback's metric syncs, and its step count."""
+        syncs) and the callback's metric syncs, and its step count.
+        `writer` is an optional `mtgs_torch.utils.observability.Writer`
+        given every step's metrics plus step_ms / rays_per_s (ref:
+        nerfstudio writer events); with one, every step waits for the
+        device, as the metrics are read back."""
         cc = self.cfg.control
+        timer = StepTimer(pixels_per_step=self.cfg.width * self.cfg.height)
         history = []
         self.loop_stats = dict(dispatch_s=0.0, refine_s=0.0, sync_s=0.0, steps=0)
         for i in range(num_steps):
@@ -601,6 +607,7 @@ class Trainer:
                         scale = s
                 if scale != self._cur_scale:
                     self._set_resolution_stage(scale)
+                    timer = StepTimer(pixels_per_step=self.cfg.width * self.cfg.height)
             if self._pending_batch is not None:
                 batch, self._pending_batch = self._pending_batch, None
             else:
@@ -639,10 +646,15 @@ class Trainer:
                     self.reset_opacities()
                     self.reset_steps.append(sref)
             self.loop_stats["refine_s"] += time.perf_counter() - t0
+            if writer is not None:
+                timing = timer.tick()
+                writer.put_dict({**{k: float(v) for k, v in metrics.items()}, **timing}, step)
             if callback is not None and (step % log_every == 0 or i == num_steps - 1):
                 t0 = time.perf_counter()
                 values = {k: float(v) for k, v in metrics.items()}
                 self.loop_stats["sync_s"] += time.perf_counter() - t0
                 callback(step, values)
             history.append(metrics)
+        if writer is not None:
+            writer.flush()
         return history

@@ -1,1 +1,2 @@
-"""Host utilities: point-cloud IO and filtering."""
+"""Host utilities: point-cloud IO and filtering; observability (metric
+writers, step timing, traces)."""

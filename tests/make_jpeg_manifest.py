@@ -2,11 +2,14 @@
 encodings of seeded uint8 arrays.
 
 `mtgs_torch.data.image_io.write_jpeg` must write the bytes PIL writes for
-`Image.fromarray(img).save(path)` to a .jpg path (quality 75, 4:2:0). Where
-no PIL is installed (the machine with the card), `chip_smoke.py` remakes the
-arrays with `make_array` (numpy only, integer arithmetic) and holds the
-encoder's bytes against the hashes here. Each entry: name, kind ("noise" or
-"gradient"), seed, shape [H, W, 3], sha256 and size of PIL's file.
+`Image.fromarray(img).save(path)` to a .jpg path (quality 75, 4:2:0), and
+`encode_jpeg(img, quality=85)` the bytes of `save(..., quality=85)` (the
+viewer's frames). Where no PIL is installed (the machine with the card),
+`chip_smoke.py` remakes the arrays with `make_array` (numpy only, integer
+arithmetic) and holds the encoder's bytes against the hashes here. Each
+entry: name, kind ("noise" or "gradient"), seed, shape [H, W, 3], sha256 and
+size of PIL's file at its default quality, and under "q85" those at quality
+85.
 
 Run from the repository root (needs PIL):  python tests/make_jpeg_manifest.py
 The manifest is regenerated bit for bit.
@@ -45,11 +48,13 @@ def make_array(entry: dict) -> np.ndarray:
     return np.stack([ramps[i] for i in order], -1).astype(np.uint8)
 
 
-def pil_jpeg(img: np.ndarray) -> bytes:
+def pil_jpeg(img: np.ndarray, quality=None) -> bytes:
+    """PIL's JPEG file of `img`, at its default quality unless one is given."""
     from PIL import Image
 
     buf = io.BytesIO()
-    Image.fromarray(img).save(buf, format="JPEG")
+    kw = {} if quality is None else dict(quality=quality)
+    Image.fromarray(img).save(buf, format="JPEG", **kw)
     return buf.getvalue()
 
 
@@ -58,8 +63,10 @@ def manifest() -> dict:
 
     entries = []
     for e in ARRAYS:
-        data = pil_jpeg(make_array(e))
-        entries.append(dict(e, sha256=hashlib.sha256(data).hexdigest(), bytes=len(data)))
+        img = make_array(e)
+        data, q85 = pil_jpeg(img), pil_jpeg(img, quality=85)
+        entries.append(dict(e, sha256=hashlib.sha256(data).hexdigest(), bytes=len(data),
+                            q85=dict(sha256=hashlib.sha256(q85).hexdigest(), bytes=len(q85))))
     return dict(encoder=f"PIL {pil_version}, Image.fromarray(img).save(path) to .jpg",
                 arrays=entries)
 

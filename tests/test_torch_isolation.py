@@ -40,6 +40,8 @@ def test_importing_the_port_loads_no_jax():
     assert {"mtgs_torch.data.image_io", "mtgs_torch.data.nuplan", "mtgs_torch.data.dataset",
             "mtgs_torch.data.loader", "mtgs_torch.utils.pointcloud",
             "mtgs_torch.tools.train_scene"} <= set(mods)
+    assert {"mtgs_torch.viewer.server", "mtgs_torch.utils.observability",
+            "mtgs_torch.tools.bench_train", "mtgs_torch.tools.profile_raster"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

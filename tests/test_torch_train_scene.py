@@ -3,8 +3,9 @@
 package's (carried across with `scene_from_state_dict`), `main --device
 cpu` training, resuming (from a full and from a stripped checkpoint) and
 reloading through `eval_setup`, `render_interpolated`'s frames and poses
-against JAX's, and the importer of the reference's checkpoints against
-JAX's on the fake checkpoints of tests/test_checkpoint.py."""
+against JAX's, the importer of the reference's checkpoints against JAX's on
+the fake checkpoints of tests/test_checkpoint.py, and the viewer over a
+trained run (`viewer.server.viewer_from_run` and `main`)."""
 
 import dataclasses
 import json
@@ -32,6 +33,7 @@ from mtgs_torch.eval.pipeline import evaluate_scene
 from mtgs_torch.models.convert import scene_from_state_dict
 from mtgs_torch.tools import render, train_scene
 from mtgs_torch.train import checkpoint as ckpt
+from mtgs_torch.viewer import server as viewer_server
 
 W, H = 96, 64
 RUN = ["--device", "cpu", "--width", str(W // 2), "--height", str(H // 2), "--scale", "0.5",
@@ -198,6 +200,47 @@ def test_main_trains_resumes_and_reloads(block, tmp_path, capsys, small_isect_bu
     after, params3 = _eval_again(out)
     _close_to(json.loads((out / "eval_result.json").read_text()), after)
     assert not torch.equal(params3.background.means, params.background.means)
+
+
+def test_viewer_serves_a_trained_run(block, tmp_path, monkeypatch, small_isect_buffer):
+    """`python -m mtgs_torch.viewer.server --run DIR` on a 1-step run: the
+    scene eval_setup reloads, every traversal with its first frame, the
+    start camera 2 m above the seed cloud's median, every dataset camera as
+    a frustum with its split; frames render at both rungs; without a card
+    it raises before it serves."""
+    out = tmp_path / "run"
+    assert train_scene.main(["--data", str(block), "--out", str(out), "--steps", "1",
+                             *RUN]) == 0
+    served = []
+    monkeypatch.setattr(viewer_server.ViewerServer, "serve",
+                        lambda self, port=7007, host="0.0.0.0": served.append((self, port)))
+    viewer_server.main(["--run", str(out), "--port", "0", "--device", "cpu"])
+    (srv, port), = served
+    assert port == 0
+    params, _, cfg, scene, _ = train_scene.eval_setup(out, device="cpu")
+    assert torch.equal(srv.params.background.means, params.background.means)
+    assert srv.cfg == cfg and srv.device.type == "cpu"
+    recs = scene.records
+    assert srv.travels == sorted({r.travel_index for r in recs}) == [0, 1]
+    first = {}
+    for r in recs:
+        first.setdefault(r.travel_index, r.frame_idx)
+    assert srv.frame_of_travel == first
+    center = np.median(scene.seed_xyz, axis=0)
+    assert srv.init_pos == pytest.approx([center[0], center[1], center[2] + 2.0])
+    assert len(srv.cameras) == len(recs)
+    assert [c["split"] for c in srv.cameras] == [
+        "train" if r.travel_id in scene.train_travel_ids else "eval" for r in recs]
+    np.testing.assert_allclose(np.reshape(srv.cameras[0]["c2w"], (3, 4)), recs[0].c2w[:3])
+    for lowres, shape in (("0", (cfg.height, cfg.width, 3)),
+                          ("1", (cfg.height // 4, cfg.width // 4, 3))):
+        jpeg = srv.render(dict(travel="1", lowres=lowres, output="depth"))
+        (tmp_path / "f.jpg").write_bytes(jpeg)
+        assert image_io.read_image(tmp_path / "f.jpg").shape == shape
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        viewer_server.main(["--run", str(out)])
+    assert len(served) == 1
 
 
 def test_main_raises_without_a_card(block, tmp_path, monkeypatch):
