@@ -16,7 +16,8 @@ export, the deformable and WildGaussians presets on the campaign's scene,
 the viewer serving the road block over HTTP (`viewer.server`), and the
 metric writers, the trace and the two bench tools
 (`utils/observability.py`, `tools/bench_train.py`,
-`tools/profile_raster.py`); and holds
+`tools/profile_raster.py`), and `mtgs_torch.parallel` as ranks on the card
+(data parallel, tile-sharded rasterization, a 2D mesh); and holds
 the seven hand-written CUDA kernels (`csrc/expand_fused.cu`,
 `csrc/blend_forward.cu`, `csrc/blend_backward.cu`, `csrc/segment_sum.cu`,
 `csrc/expand_pairs.cu`, the two of `csrc/transpose.cu`) against their
@@ -177,6 +178,37 @@ plain PyTorch versions. Phases, each of which raises on failure:
      (classic) and with `--fused` (profile_raster also `--trace`), their
      JSON line, iters/s, stage deltas and H100 roofline, and their
      launches counted against what each must make;
+  16. parallel: `mtgs_torch.parallel` as processes on the one card (gloo,
+     every rank on cuda:0, collectives staged through host memory; NCCL
+     refuses two ranks on one device), each rank reading phase 6's start
+     from one file the parent writes and taking phase 6's training views.
+     World 2: a
+     data-parallel step with the same view on both ranks against the
+     single-process step (gradient leaves within 2e-4 max-scaled, the loss
+     1e-6 relative, the parameters after it), then PARALLEL_DP_STEPS
+     `DPTrainer` steps on distinct views with the refine and reset at
+     REFINE_EVERY (psnr on the same views rising within each stretch, every
+     rank's parameters, moments and densify statistics bit-equal by
+     SHA-256); one view rendered and differentiated on a 2-rank tile mesh
+     by the band plan (the default), the ownership plan (MTGS_DIST=1,
+     MTGS_BLK_SLACK 2.0) and the layered plan (MTGS_LAYERED=1, buffer
+     PARALLEL_LAYERED_I), each against the single process (phase 4's view
+     tolerances, gradients 2e-4 max-scaled; the layered plan against its
+     own semantics on one process, `layered_reference`, its difference from
+     the single blend reported), no truncation; one classic
+     1920x1080 frame (I = 2^23) rendered and differentiated with the blend
+     sharded; `Trainer(mesh=...)` through a growth of the intersection
+     buffer at the refine (from PARALLEL_GROW_FROM, which rounded to 512
+     alone would leave the band plan), on the band plan at every step.
+     World 4: one step over a (2 data, 2 tile) mesh (the ownership plan
+     along tile) against the data-parallel step over its data axis. The
+     pipeline of every sharded render is recorded and must be the plan's
+     (`pipelines_recorded`, and the plan functions agree); the launch
+     counters are read around each run on every rank (kernels 1-4 once a
+     forward and backward, 5-7 on the classic frame); a failing rank fails
+     the world, and every world has a deadline (PARALLEL_TIMEOUT). Wall ms
+     of a DP step and of a sharded render are printed as ranks time-sliced
+     on one card, not a scaling figure;
   5. kernels: each kernel against its plain version, the fused forward two
      at the shapes of one serving view, the backward two at those of one
      training step (both blends also on the faint scene of one more
@@ -184,7 +216,9 @@ plain PyTorch versions. Phases, each of which raises on failure:
      must give equal bits; the blend forward and the segment sum also at
      a grown training step's, the segment sum twice at each for equal
      bits; the fused expansion also at phase 9's first, fused, step's;
-     both blends also at phase 10's trained-scene step's),
+     both blends also at phase 10's trained-scene step's; the blend backward
+     also on the lower tile-row band of the phase-6 step at its nonzero
+     tile_base, its columns bit-equal to the whole image's),
      the classic three at a 1920x1080 frame's and a grown training
      step's; every blend pixel above BLEND_TOL must be a termination or a
      cut-off flip; each timed on the device alone (`device_ms`: a CUDA
@@ -245,10 +279,16 @@ from mtgs_torch.models.convert import scene_from_state_dict
 from mtgs_torch.models.deform import init_deform_mlp
 from mtgs_torch.models.gaussians import init_skybox_node, node_capacity
 from mtgs_torch.models.scene_graph import DeformableParams, node_segments
+from mtgs_torch.parallel.collectives import pmean
+from mtgs_torch.parallel.data_parallel import DPTrainer, make_dp_train_step, shard_batch
+from mtgs_torch.parallel.mesh import launch, make_mesh
+from mtgs_torch.parallel.mesh2d import make_2d_train_step
 from mtgs_torch.raster import (
     RasterizeConfig, binning, blend, cuda_build, expand_fused, expand_pairs, rasterize,
     segment_sum,
 )
+from mtgs_torch.raster.dist_fused import dist_shard_plan
+from mtgs_torch.raster.layered_dist import layered_shard_plan
 from mtgs_torch.raster.chunk_math import (
     ALPHA_MAX, ALPHA_MIN, LOG_T_EPS, NUM_GEOM, conic_coefficients, pixel_features, round8,
 )
@@ -257,14 +297,19 @@ from mtgs_torch.tools import bench_train, campaign, profile_raster, train_scene
 from mtgs_torch.tools import export as gaussian_export
 from mtgs_torch.tools import render as render_tool
 from mtgs_torch.train import checkpoint
-from mtgs_torch.train.optim import named_leaves
-from mtgs_torch.train.trainer import Batch, Trainer, loss_and_grads, render_view
+from mtgs_torch.train.optim import OptimConfig, default_groups, named_leaves
+from mtgs_torch.train.trainer import (
+    Batch, Trainer, _total_capacity, init_train_state, loss_and_grads, render_view, train_step,
+)
 from mtgs_torch.utils import observability
 from mtgs_torch.viewer import server as viewer_server
 
 # the modules (the packages' attributes of these names are functions)
 rasterize_mod = importlib.import_module("mtgs_torch.raster.rasterize")
 pipeline_mod = importlib.import_module("mtgs_torch.eval.pipeline")
+trainer_mod = importlib.import_module("mtgs_torch.train.trainer")
+dist_mod = importlib.import_module("mtgs_torch.raster.dist_fused")
+layered_mod = importlib.import_module("mtgs_torch.raster.layered_dist")
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit), shared with
@@ -294,6 +339,11 @@ KERNELS = FUSED_KERNELS + CLASSIC_ONLY
 # the module whose attribute each kernel wrapper is where the path calls it
 KERNEL_HOMES = {**{k: rasterize_mod for k in KERNELS}, "expand_pairs": binning}
 CLASSIC_TOL = dict(render=1e-6, grads=1e-5)  # phase 7: the classic path against the fused
+# the pipelines of rasterize(mesh=...): phase 16 records which one ran
+PIPELINES = dict(layered=(layered_mod, "rasterize_layered"),
+                 dist=(dist_mod, "rasterize_fused_dist"),
+                 band=(rasterize_mod, "_rasterize_fused_sharded"),
+                 classic=(rasterize_mod, "_blend_sharded"))
 RENDER_SIZE = (1920, 1080)  # phase 8: nuPlan's camera resolution, the render tool's default
 RENDER_I = 1 << 23
 RENDER_FRAMES = 6
@@ -326,6 +376,20 @@ VIEWER_WARMUP = 5        # phase 14: HTTP round trips before the timed ones, a r
 VIEWER_REQUESTS = 30     # phase 14: timed requests a rung (and in-process splits)
 OBS_STEPS = 20           # phase 15: Trainer.train steps with a JsonlWriter
 OBS_TRACE_STEPS = 5      # phase 15: steps under observability.trace
+PARALLEL_DP_STEPS = 20   # phase 16: DPTrainer steps (a refine and a reset at REFINE_EVERY)
+PARALLEL_GROW_FROM = (1 << 21) + 1024  # phase 16: Trainer(mesh=)'s first buffer: grown at
+# the refine by 1.5 it is an odd multiple of 512, which the band plan at 2 ranks refuses
+PARALLEL_GROW_STEPS = 12  # phase 16: Trainer(mesh=) steps, the growth at the refine of step 10
+PARALLEL_TIMEOUT = 300   # phase 16: seconds each world of ranks may take, start-up included
+# the layered plan's buffer: its depth slabs split the gaussians, not the pairs, and at the
+# preset's 2^21 the fuller slab of phase 6's first view holds more pairs than its I / 2
+# slots (truncated: the n_intersections check fails)
+PARALLEL_LAYERED_I = 1 << 22
+# phase 16's plans, by the variables that pick them (MTGS_BLK_SLACK 2.0: untruncated
+# exchange blocks, so the ownership plan can be held to the single-process render)
+PARALLEL_PLANS = dict(band={}, dist=dict(MTGS_DIST="1", MTGS_BLK_SLACK="2.0"),
+                      layered=dict(MTGS_LAYERED="1"))
+PLAN_VARS = ("MTGS_DIST", "MTGS_BLK_SLACK", "MTGS_LAYERED", "MTGS_ROW_SLACK")
 # the training start: the scene's alive rows jittered by these standard deviations
 JITTER = dict(means=0.05, features_dc=0.3, opacities=0.5)
 
@@ -3174,6 +3238,24 @@ def backward_timing(a, kw):
     return row, got
 
 
+def band_capture(a, kw):
+    """One capture's blend backward arguments cut to its lower tile-row
+    band (the rows the second rank of a 2-rank band plan replays), with the
+    band's tile_base."""
+    tx, T = kw["tiles_x"], a[1].shape[0]
+    base = -(-(T // tx) // 2) * tx
+    return (a[0], *(x[base:] for x in a[1:])), dict(kw, tile_base=base)
+
+
+def range_columns(offs, heads, counts, cap: int) -> torch.Tensor:
+    """[cap] bool: the slab columns inside the tiles' ranges."""
+    starts = (offs + heads).long()
+    delta = torch.zeros(cap + 1, dtype=torch.int32, device=offs.device)
+    delta.index_add_(0, starts, torch.ones_like(counts))
+    delta.index_add_(0, starts + counts.long(), -torch.ones_like(counts))
+    return torch.cumsum(delta, 0)[:cap] > 0
+
+
 @torch.no_grad()
 def phase_kernels(by_path, captured, train_captured, faint_captured, render_captured,
                   growth_captured, growth_fused_captured, campaign_captured, dev):
@@ -3227,7 +3309,17 @@ def phase_kernels(by_path, captured, train_captured, faint_captured, render_capt
     # blend_backward: the replay of one training step's blend, at the bright
     # start (the phase-6 gradient step) and on the faint scene after the
     # opacity reset (one more step of the phase-6 trainer)
-    bright, _ = backward_timing(*train_captured["blend_backward"])
+    bright, bright_got = backward_timing(*train_captured["blend_backward"])
+    # a tile-row band at its nonzero tile_base: against the plain version
+    # (backward_timing), and its columns bit-equal to the whole image's
+    # (each tile is replayed alone)
+    band_a, band_kw = band_capture(*train_captured["blend_backward"])
+    at_band, band_got = backward_timing(band_a, band_kw)
+    cols = range_columns(*band_a[1:4], band_a[0].shape[1])
+    require(bool(cols.any()) and torch.equal(band_got[:, cols], bright_got[:, cols]),
+            f"blend_backward at tile_base {band_kw['tile_base']}: the band's columns differ "
+            "from the whole image's")
+    at_band["tile_base"] = band_kw["tile_base"]
     faint, faint_got = backward_timing(*faint_captured["blend_backward"])
     trained, _ = backward_timing(*campaign_captured["blend_backward"])
     a, kw = faint_captured["blend_backward"]
@@ -3240,7 +3332,8 @@ def phase_kernels(by_path, captured, train_captured, faint_captured, render_capt
         replaces="mtgs_tpu/raster/blend_pallas.py:462",
         tpu_kernel="mtgs_tpu/raster/blend_pallas.py::blend_backward_pallas",
         launches=launches["blend_backward"], tol=dict(max_scaled=GRAD_TOL), **bright,
-        at_faint=faint, at_campaign=trained, repeat_bit_equal=True, library_ms=None,
+        at_faint=faint, at_campaign=trained, at_tile_base=at_band, repeat_bit_equal=True,
+        library_ms=None,
         library_note="none: no PyTorch call computes the gradient of a depth-ordered blend"))
 
     # dense_segment_sum: one training step's slot rows to per-gaussian sums,
@@ -3260,7 +3353,7 @@ def phase_kernels(by_path, captured, train_captured, faint_captured, render_capt
         k["kernel_ms"] = k["ms"]
         for label, row in [("kernel " + k["name"], k)] + [
                 ("  " + at, k[at]) for at in ("at_faint", "at_growth", "at_training",
-                                              "at_campaign") if at in k]:
+                                              "at_campaign", "at_tile_base") if at in k]:
             log(f"# {label}: {row['device_ms']:.4f} ms on the device, {row['ms']:.4f} ms "
                 f"with the wrapper (plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} "
                 f"ms by {row['bound_by']}), max err {row['max_abs_err']:.3g}")
@@ -3373,6 +3466,29 @@ def legacy_blend_forward(lib, slab_t, tile_offsets, tile_heads, tile_counts, til
     return rgb, t_final
 
 
+def legacy_blend_backward(lib, slab_t, tile_offsets, tile_heads, tile_counts, tile_nchunks,
+                          rgb_tiles, t_final, g_rgb, g_t, *, tile_size, tiles_x, c_total,
+                          tile_base=0):
+    """blend_backward through a library whose mtgs_blend_backward takes the
+    argument list without tile_base (no mtgs_blend_backward_abi symbol:
+    csrc/blend_backward.cu before it took one); tile_base must be 0."""
+    require(tile_base == 0, "a blend_backward.cu without tile_base replays tile 0 onwards")
+    fn = lib.mtgs_blend_backward
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, ctypes.c_longlong, i, p, p, p, p, i, i, i, i, p, p, p, p, p, p]
+    fn.restype = ctypes.c_int
+    W, cap = slab_t.shape
+    g_slab = torch.zeros((W, cap), dtype=torch.float32, device=slab_t.device)
+    order = blend.tile_order(tile_counts)
+    dense = [x.contiguous() for x in (rgb_tiles, t_final, g_rgb, g_t)]
+    err = fn(slab_t.data_ptr(), cap, W, tile_offsets.data_ptr(), tile_heads.data_ptr(),
+             tile_counts.data_ptr(), order.data_ptr(), tile_offsets.shape[0], tile_size,
+             tiles_x, c_total, *(x.data_ptr() for x in dense), g_slab.data_ptr(),
+             torch.cuda.current_stream(slab_t.device).cuda_stream)
+    cuda_build.check(err, "blend_backward (legacy argument list)")
+    return g_slab
+
+
 def phase_ab(specs, serving_captured, train_captured, faint_captured, render_captured,
              growth_captured, growth_faint_captured, growth_fused_captured):
     """`--ab SOURCE=PATH`: each kernel of another version of a source
@@ -3401,7 +3517,13 @@ def phase_ab(specs, serving_captured, train_captured, faint_captured, render_cap
         def same(mine, other):
             return (float(row_errors(other[:nw], mine[:nw]).max()) <= GRAD_TOL
                     and not other[nw:].any())
-        return lambda: blend.blend_backward(*a, **kw), same
+
+        def call():
+            lib = cuda_build.load("blend_backward.cu")
+            if hasattr(lib, "mtgs_blend_backward_abi"):
+                return blend.blend_backward(*a, **kw)
+            return legacy_blend_backward(lib, *a, **kw)
+        return call, same
 
     def ss(captured):
         (rows, src, n), _ = captured["dense_segment_sum"]
@@ -3509,6 +3631,636 @@ def phase_profile(label, fn, top: int = 25):
                 by_kernel=[dict(name=k, ms=ms, count=n) for k, (ms, n) in rows])
 
 
+# ------------------------------------------------------ phase 16: parallel
+
+@contextlib.contextmanager
+def pipelines_recorded(ran: list):
+    """Appends to `ran` the name of each sharded rasterizer pipeline that
+    runs (rasterize(mesh=...) picks one of PIPELINES per view)."""
+    saved = {name: getattr(mod, fn) for name, (mod, fn) in PIPELINES.items()}
+
+    def rec(name, f):
+        def call(*a, **kw):
+            ran.append(name)
+            return f(*a, **kw)
+        return call
+
+    for name, (mod, fn) in PIPELINES.items():
+        setattr(mod, fn, rec(name, saved[name]))
+    try:
+        yield
+    finally:
+        for name, (mod, fn) in PIPELINES.items():
+            setattr(mod, fn, saved[name])
+
+
+@contextlib.contextmanager
+def plan_env(env: dict):
+    """The rasterizer's plan variables set to `env` alone inside the block."""
+    saved = {k: os.environ.pop(k, None) for k in PLAN_VARS}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k in PLAN_VARS:
+            os.environ.pop(k, None)
+            if saved[k] is not None:
+                os.environ[k] = saved[k]
+
+
+def stacked(batches) -> Batch:
+    """One batch whose fields carry a leading axis: one view per rank of a
+    data axis (`shard_batch` takes the rank's)."""
+    return Batch(**{f.name: None if getattr(batches[0], f.name) is None else torch.stack(
+        [torch.as_tensor(getattr(b, f.name)) for b in batches]) for f in dataclasses.fields(Batch)})
+
+
+def batches_to(batches, dev):
+    """Batches with every array on `dev` (numpy or host tensors in)."""
+    return [Batch(**{f.name: (torch.as_tensor(v, device=dev)
+                              if isinstance(v, (np.ndarray, torch.Tensor)) else v)
+                     for f in dataclasses.fields(Batch) for v in [getattr(b, f.name)]})
+            for b in batches]
+
+
+def state_digest(state) -> str:
+    """SHA-256 over the bytes of every parameter, Adam moment and densify
+    statistic of a TrainState: equal digests are equal states, bit for bit."""
+    h = hashlib.sha256()
+    for tree in (state.params, state.adam.mu, state.adam.nu):
+        for path, t in named_leaves(tree):
+            h.update(path.encode())
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    for kind in sorted(state.densify):
+        for f in dataclasses.fields(state.densify[kind]):
+            h.update(getattr(state.densify[kind], f.name).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def grad_errors(got: dict, want: dict) -> dict:
+    """Each gradient leaf's max error over its largest |value|, that scale
+    taken as at least 1e-3 of the largest leaf's: a leaf of rounding noise
+    (the quaternions of near-isotropic splats) is held absolutely, since a
+    sharded backward sums its partial gradients in another order."""
+    top = max(float(w.abs().max()) for w in want.values() if w.numel())
+    return {k: float((got[k] - w).abs().max()) / max(float(w.abs().max()), 1e-3 * top)
+            for k, w in want.items() if w.numel()}
+
+
+def save_state(state_sd, path: Path) -> None:
+    """A scene state (nested dicts of numpy arrays, None left out) to an
+    uncompressed .npz, the keys its paths joined by '/'."""
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            elif v is not None:
+                flat[f"{prefix}{k}"] = v
+
+    walk(dict(params=state_sd[0], aux=state_sd[1]), "")
+    np.savez(path, **flat)
+
+
+def load_state(path: Path):
+    """save_state's file back as (params, aux) state dicts."""
+    out = {}
+    with np.load(path) as f:
+        for key in f.files:
+            node = out
+            *dirs, leaf = key.split("/")
+            for d in dirs:
+                node = node.setdefault(d, {})
+            node[leaf] = f[key]
+    return out["params"], out["aux"]
+
+
+def rank_scene(a: dict, dev):
+    """Phase 6's start (the jittered scene, in its JAX state-dict layout),
+    read from the file the parent wrote, and its train config."""
+    return load_state(Path(a["state_path"])), train_config(argparse.Namespace(**a))
+
+
+def sync(dev) -> None:
+    """Wait for a rank's device (its host has nothing to wait for)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def wall_ms(fn, dev, reps: int = 5) -> float:
+    """Median host milliseconds of fn() ending in a device sync, after one
+    warm-up call."""
+    fn()
+    sync(dev)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def rank_dp(a, mesh, state_sd, cfg, batches, dev) -> dict:
+    """Phase 16's data-parallel checks on one rank of a 2-rank 'data' mesh."""
+    optim = OptimConfig(groups=default_groups(cfg.max_steps))
+    group = mesh.group("data")
+    # one step with the same view on both ranks, against the single-process step
+    params, aux = scene_from_state_dict(*state_sd, device=dev)
+    single = init_train_state(params)
+    total1, _, _, sink1, grads1 = loss_and_grads(params, aux, cfg, batches[0], 0, device=dev)
+    train_step(single, aux, cfg, batches[0], optim, device=dev)
+    params, aux = scene_from_state_dict(*state_sd, device=dev)
+    state = init_train_state(params)
+    batch = shard_batch(stacked([batches[0], batches[0]]), mesh)
+    total2, _, _, sink2, grads2 = loss_and_grads(params, aux, cfg, batch, 0, device=dev)
+    keys = list(grads2)
+    red = pmean([grads2[k] for k in keys] + [sink2, total2], group)
+    cuda_build.reset_launches()  # the data-parallel step's launches counted from here ...
+    metrics = make_dp_train_step(cfg, optim, mesh, device=dev)(
+        state, aux, stacked([batches[0], batches[0]]))
+    sync(dev)
+    step_launches = dict(cuda_build.LAUNCHES)  # ... to here
+    g_err = grad_errors(dict(zip(keys, red[:len(keys)]), absgrad=red[-2]),
+                        dict(grads1, absgrad=sink1))
+    loss_rel = abs(float(red[-1]) - float(total1)) / abs(float(total1))
+    p_err = max(float((x - y).detach().abs().max()) for (_, x), (_, y) in
+                zip(named_leaves(state.params), named_leaves(single.params)) if x.numel())
+    del params, aux, single, state, grads1, grads2, red
+    torch.cuda.empty_cache()
+
+    # DPTrainer: distinct views (rank r takes view 2i + r at step i), a refine
+    # and an opacity reset at step REFINE_EVERY
+    params, aux = scene_from_state_dict(*state_sd, device=dev)
+
+    def data():
+        for i in itertools.count():
+            yield stacked([batches[(2 * i) % len(batches)], batches[(2 * i + 1) % len(batches)]])
+
+    trainer = DPTrainer(cfg, params, aux, data(), mesh, seed=a["seed"], device=dev)
+    stamps, logged = [], []
+
+    def on_step(step, m):
+        sync(dev)
+        stamps.append(time.perf_counter())
+        logged.append(m)
+
+    sync(dev)
+    cuda_build.reset_launches()  # DPTrainer's launches counted from here ...
+    t0 = time.perf_counter()
+    trainer.train(a["dp_steps"], log_every=1, callback=on_step)
+    sync(dev)
+    launches = dict(cuda_build.LAUNCHES)  # ... to here
+    step_ms = list(1e3 * np.diff([t0] + stamps))
+    return dict(
+        identical=dict(grad_errors=g_err, loss_rel=loss_rel, params_max_abs_diff=p_err,
+                       launches=step_launches, total_loss=float(metrics["total_loss"])),
+        trainer=dict(launches=launches, psnr=[m["psnr"] for m in logged],
+                     total_loss=[m["total_loss"] for m in logged],
+                     nonfinite=[k for m in logged for k, v in m.items() if not np.isfinite(v)],
+                     n_intersections=[m["n_intersections"] for m in logged],
+                     refine_events=trainer.refine_events, reset_steps=trainer.reset_steps,
+                     step_ms=step_ms, ms_per_step_median=float(np.median(step_ms[2:])),
+                     max_intersections=trainer.cfg.max_intersections,
+                     digest=state_digest(trainer.state)))
+
+
+def layered_reference(n_ranks: int, k_smp: int = 64):
+    """A rasterize of one process with the layered plan's semantics, for
+    `render_view` to call in place of the rasterizer: the gaussians split
+    into n_ranks depth slabs at the splitters the plan's homes draw (k_smp
+    depth samples of each stride-interleaved home), each slab blended alone
+    over the whole image from T = 1 (`_FusedRasterize`), the slabs
+    composited front to back (`layered_dist._Composite`). The layered plan
+    must match it to f32 rounding, forward and backward; the single blend it
+    does not match where a blend stops (a later slab goes on compositing)."""
+    def run(means, quats, scales, opacities, colors, viewmat, K, config, *, tap2d=None,
+            absgrad_sink=None, **_):
+        N = means.shape[0]
+        proj = rasterize_mod.project_gaussians(
+            means, quats, scales, viewmat, K, config.width, config.height,
+            near_plane=config.near_plane, far_plane=config.far_plane,
+            antialiased=(config.rasterize_mode == "antialiased"))
+        means2d = proj.means2d if tap2d is None else proj.means2d + tap2d
+        op_eff = opacities * proj.compensations
+        cols = torch.cat([colors, proj.depths[:, None]], dim=-1) if config.with_depth else colors
+        table = torch.cat([means2d, proj.conics, op_eff[:, None], cols], dim=-1)
+        sink = absgrad_sink if absgrad_sink is not None else table.new_zeros((N, 2))
+        live = proj.valid & (op_eff.detach() > 0)
+        with torch.no_grad():
+            packed, counts = binning.tile_spans(
+                means2d.detach(), proj.radii, live, width=config.width, height=config.height,
+                tile_size=config.tile_size, conics=proj.conics.detach(), op_eff=op_eff.detach())
+            depth_key = torch.where(counts > 0, proj.depths.detach(), float("inf"))
+            smp = []
+            for h in range(n_ranks):
+                dk = torch.sort(depth_key[h::n_ranks]).values
+                n_live = int(torch.isfinite(dk).sum())
+                pos = torch.clamp(torch.arange(k_smp, device=dk.device) * max(n_live, 1) // k_smp,
+                                  0, dk.shape[0] - 1)
+                smp.append(dk[pos] if n_live else torch.full_like(dk[pos], float("inf")))
+            all_smp = torch.sort(torch.cat(smp)).values
+            q = all_smp[torch.arange(1, n_ranks, device=dk.device) * k_smp]
+            slab = torch.searchsorted(q, depth_key, right=True)
+        # each slab's buffer is the plan's: I / n_ranks slots
+        st = rasterize_mod.FusedStatics(config.max_intersections // n_ranks,
+                                        config.tiles_x * config.tiles_y, config.tiles_x,
+                                        config.tile_size)
+        layers = [rasterize_mod._FusedRasterize.apply(
+            st, table, packed, torch.where(slab == d, counts, 0), proj.depths.detach(), sink)
+            for d in range(n_ranks)]
+        rgb, t = layered_mod._Composite.apply(torch.stack([x[0] for x in layers]),
+                                              torch.stack([x[1] for x in layers]))
+        render, alpha = rasterize_mod._assemble_image(rgb, t, config, cols.shape[-1])
+        n_isect = torch.stack([x[2] for x in layers]).max().reshape(1) * n_ranks
+        return render, alpha, dict(means2d=means2d, radii=proj.radii, depths=proj.depths,
+                                   n_intersections=n_isect,
+                                   compensations=proj.compensations.detach())
+    return run
+
+
+@contextlib.contextmanager
+def rasterizer_replaced(fn):
+    """render_view calls fn in place of `rasterize` inside the block."""
+    saved = trainer_mod.rasterize
+    trainer_mod.rasterize = fn
+    try:
+        yield
+    finally:
+        trainer_mod.rasterize = saved
+
+
+def rank_tile(a, mesh, state_sd, cfg, batches, dev) -> dict:
+    """Phase 16's tile-sharded checks on one rank of a 2-rank 'tile' mesh:
+    one view's render and gradients under each fused plan, one classic
+    1920x1080 frame, Trainer(mesh=...) through a capacity growth."""
+    params, aux = scene_from_state_dict(*state_sd, device=dev)
+    n_gauss = _total_capacity(params)
+    batch = batches[0]
+    want_view = render_view(params, aux, cfg, batch, GRAD_STEP, device=dev)
+    total1, _, _, sink1, grads1 = loss_and_grads(params, aux, cfg, batch, GRAD_STEP, device=dev)
+    want_grads = dict(grads1, absgrad=sink1)
+    single_ms = wall_ms(lambda: render_view(params, aux, cfg, batch, GRAD_STEP, device=dev), dev)
+    out = dict(n_gauss=n_gauss, single_render_ms=single_ms)
+    for plan, env in PARALLEL_PLANS.items():
+        pcfg = cfg.replace(max_intersections=a["layered_i"]) if plan == "layered" else cfg
+        rcfg = pcfg.raster_config()
+        with plan_env(env):
+            plans = dict(layered=layered_shard_plan(rcfg, 2, n_gauss),
+                         dist=dist_shard_plan(rcfg, 2, n_gauss),
+                         band=rasterize_mod._fused_shard_plan(rcfg, 2, n_gauss))
+            ran = []
+            with pipelines_recorded(ran):
+                cuda_build.reset_launches()  # this plan's render counted from here ...
+                got_view = render_view(params, aux, pcfg, batch, GRAD_STEP, device=dev,
+                                       mesh=mesh)
+                sync(dev)
+                render_launches = dict(cuda_build.LAUNCHES)  # ... to here
+                cuda_build.reset_launches()  # its gradient step counted from here ...
+                total2, _, _, sink2, grads2 = loss_and_grads(params, aux, pcfg, batch,
+                                                             GRAD_STEP, device=dev, mesh=mesh)
+                sync(dev)
+                grad_launches = dict(cuda_build.LAUNCHES)  # ... to here
+            ms = wall_ms(lambda: render_view(params, aux, pcfg, batch, GRAD_STEP, device=dev,
+                                             mesh=mesh), dev)
+        ref_view, ref_grads, ref_total = want_view, want_grads, total1
+        single = None
+        if plan == "layered":
+            # held against the layered semantics on one process; its
+            # difference from the single blend is reported (layered_reference)
+            single = dict(view_errors=view_errors(got_view, want_view),
+                          grad_errors=grad_errors(dict(grads2, absgrad=sink2), want_grads))
+            with rasterizer_replaced(layered_reference(2)):
+                ref_view = render_view(params, aux, pcfg, batch, GRAD_STEP, device=dev)
+                ref_total, _, _, ref_sink, ref_grads = loss_and_grads(
+                    params, aux, pcfg, batch, GRAD_STEP, device=dev)
+            ref_grads = dict(ref_grads, absgrad=ref_sink)
+        out[plan] = dict(
+            ran=ran, plans_active={k: v is not None for k, v in plans.items()},
+            view_errors=view_errors(got_view, ref_view),
+            grad_errors=grad_errors(dict(grads2, absgrad=sink2), ref_grads),
+            against_single=single,
+            loss_rel=abs(float(total2) - float(ref_total)) / abs(float(ref_total)),
+            n_intersections=int(got_view["n_intersections"]),
+            max_intersections=pcfg.max_intersections,
+            render_launches=render_launches, grad_launches=grad_launches, render_ms=ms)
+        del got_view, grads2, sink2
+
+    # one classic frame at the render tool's size: the blend alone sharded
+    W, H = a["render_size"]
+    fcfg = configs.mtgs_config(W, H).replace(max_intersections=a["render_i"])
+    K = np.asarray(batch.K.cpu()) * np.array([[W / a["width"]], [H / a["height"]], [1.0]])
+    frame = Batch(image=torch.full((H, W, 3), 0.5, device=dev),
+                  mask=torch.ones((H, W, 1), device=dev), c2w=batch.c2w,
+                  K=torch.as_tensor(K, dtype=torch.float32, device=dev),
+                  cam_idx=batch.cam_idx, image_idx=batch.image_idx,
+                  travel_index=batch.travel_index, frame_idx=batch.frame_idx,
+                  timestamp=batch.timestamp)
+    del want_view, grads1, sink1, want_grads
+    want_view = render_view(params, aux, fcfg, frame, GRAD_STEP, device=dev)
+    total1, _, _, sink1, grads1 = loss_and_grads(params, aux, fcfg, frame, GRAD_STEP,
+                                                 device=dev)
+    ran = []
+    with pipelines_recorded(ran):
+        cuda_build.reset_launches()  # the sharded classic frame counted from here ...
+        got_view = render_view(params, aux, fcfg, frame, GRAD_STEP, device=dev, mesh=mesh)
+        total2, _, _, sink2, grads2 = loss_and_grads(params, aux, fcfg, frame, GRAD_STEP,
+                                                     device=dev, mesh=mesh)
+        sync(dev)
+        launches = dict(cuda_build.LAUNCHES)  # ... to here
+    out["classic"] = dict(
+        ran=ran, view_errors=view_errors(got_view, want_view),
+        grad_errors=grad_errors(dict(grads2, absgrad=sink2), dict(grads1, absgrad=sink1)),
+        loss_rel=abs(float(total2) - float(total1)) / abs(float(total1)),
+        n_intersections=int(got_view["n_intersections"]), launches=launches,
+        fused_fits=fused_fits(a["render_i"], fcfg.raster_config().tiles_x
+                              * fcfg.raster_config().tiles_y, n_gauss))
+    del params, aux, want_view, got_view, grads1, grads2
+    torch.cuda.empty_cache()
+
+    # Trainer(mesh=...) through a growth of the intersection buffer at the
+    # refine (isect_grow_frac lowered so that it fires), from a buffer whose
+    # growth rounded to 512 alone would leave the band plan
+    gcfg = cfg.replace(max_intersections=a["grow_from"], isect_grow_frac=0.01)
+    params, aux = scene_from_state_dict(*state_sd, device=dev)
+    trainer = Trainer(gcfg, params, aux, itertools.cycle(batches), seed=a["seed"], device=dev,
+                      mesh=mesh)
+    steps = []
+    cuda_build.reset_launches()  # Trainer(mesh=...)'s launches counted from here ...
+    for _ in range(a["grow_steps"]):
+        ran = []
+        with pipelines_recorded(ran):
+            m = trainer.train(1)[0]
+        steps.append(dict(ran=ran, max_intersections=trainer.cfg.max_intersections,
+                          n_intersections=int(m["n_intersections"]),
+                          total_loss=float(m["total_loss"]),
+                          band_plan=rasterize_mod._fused_shard_plan(
+                              trainer.cfg.raster_config(), 2, n_gauss) is not None))
+    sync(dev)
+    out["trainer"] = dict(steps=steps, growth=trainer.growth_events,
+                          launches=dict(cuda_build.LAUNCHES),  # ... to here
+                          digest=state_digest(trainer.state))
+    return out
+
+
+def parallel_world2(rank: int, world: int, dev, a: dict, batches) -> dict:
+    """Phase 16 on one rank of the 2-rank world: data parallel, then tile
+    sharded (the two meshes are the same ranks)."""
+    state_sd, cfg = rank_scene(a, dev)
+    batches = batches_to(batches, dev)
+    data, tile = make_mesh([world], ("data",)), make_mesh([world], ("tile",))
+    t0 = time.perf_counter()
+    dp = rank_dp(a, data, state_sd, cfg, batches, dev)
+    t1 = time.perf_counter()
+    tiles = rank_tile(a, tile, state_sd, cfg, batches, dev)
+    return dict(tf32=(torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32),
+                device=str(dev), dp=dp, tile=tiles,
+                dp_seconds=t1 - t0, tile_seconds=time.perf_counter() - t1)
+
+
+def parallel_world4(rank: int, world: int, dev, a: dict, batches) -> dict:
+    """Phase 16 on one rank of the 4-rank world: one step over a (2 data, 2
+    tile) mesh against the data-parallel step over its data axis, on views
+    0 and 1."""
+    state_sd, cfg = rank_scene(a, dev)
+    batches = batches_to(batches[:2], dev)
+    mesh = make_mesh([2, 2], ("data", "tile"))
+    optim = OptimConfig(groups=default_groups(cfg.max_steps))
+    group = mesh.group("data")
+    res = {}
+    for kind in ("dp", "2d"):
+        params, aux = scene_from_state_dict(*state_sd, device=dev)
+        state = init_train_state(params)
+        batch = shard_batch(stacked(batches), mesh)
+        kw = {} if kind == "dp" else dict(mesh=mesh, mesh_axis="tile", inside_shard_map=True)
+        ran = []
+        with plan_env(PARALLEL_PLANS["dist"]), pipelines_recorded(ran):
+            _, _, _, sink, grads = loss_and_grads(params, aux, cfg, batch, 0, device=dev, **kw)
+            keys = list(grads)
+            red = pmean([grads[k] for k in keys] + [sink], group)
+            make = make_dp_train_step if kind == "dp" else make_2d_train_step
+            cuda_build.reset_launches()  # the step's launches counted from here ...
+            t0 = time.perf_counter()
+            metrics = make(cfg, optim, mesh, device=dev)(state, aux, stacked(batches))
+            sync(dev)
+            step_ms = 1e3 * (time.perf_counter() - t0)
+            launches = dict(cuda_build.LAUNCHES)  # ... to here
+        res[kind] = dict(ran=ran, grads=dict(zip(keys, red[:-1]), absgrad=red[-1]),
+                         metrics={k: float(v) for k, v in metrics.items()}, state=state,
+                         launches=launches, step_ms=step_ms)
+        del params, grads, red
+    d, t = res["dp"], res["2d"]
+    # Adam's first step moves a parameter by lr * sign(g): where a gradient
+    # is rounding noise the two steps may move it apart by up to 2 lr, so the
+    # parameters are held where |g| > 1e-3 of the leaf's largest (f32 rounding)
+    dp_params = dict(named_leaves(d["state"].params))
+    params_diff = 0.0
+    for k, x in named_leaves(t["state"].params):
+        g = d["grads"][k]
+        if not x.numel() or not g.abs().max() > 0:
+            continue
+        held = g.abs() > 1e-3 * g.abs().max()
+        rel = (x - dp_params[k]).detach().abs() / torch.clamp(dp_params[k].detach().abs(), min=1.0)
+        params_diff = max(params_diff, float(rel[held].max()) if held.any() else 0.0)
+    densify = {f.name: max_scaled_err(getattr(t["state"].densify["background"], f.name),
+                                      getattr(d["state"].densify["background"], f.name))
+               for f in dataclasses.fields(t["state"].densify["background"])}
+    return dict(
+        ran=dict(dp=d["ran"], mesh2d=t["ran"]),
+        grad_errors=grad_errors(t["grads"], d["grads"]),
+        loss_rel=abs(t["metrics"]["total_loss"] - d["metrics"]["total_loss"])
+        / abs(d["metrics"]["total_loss"]),
+        psnr=(t["metrics"]["psnr"], d["metrics"]["psnr"]), params_rel_diff=params_diff,
+        densify_errors=densify, launches=dict(dp=d["launches"], mesh2d=t["launches"]),
+        step_ms=dict(dp=d["step_ms"], mesh2d=t["step_ms"]),
+        digest=dict(dp=state_digest(d["state"]), mesh2d=state_digest(t["state"])))
+
+
+def host_batches(batches):
+    """Batches with their arrays copied to host numpy (sent to the ranks)."""
+    return [Batch(**{f.name: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v)
+                     for f in dataclasses.fields(Batch) for v in [getattr(b, f.name)]})
+            for b in batches]
+
+
+def phase_parallel(args, card: str, state_sd, batches, device: str = "cuda:0") -> tuple:
+    """Phase 16: `mtgs_torch.parallel` as ranks on the one card (gloo: NCCL
+    refuses two ranks on one device), at the mtgs preset's full width on
+    phase 6's start (`state_sd`) and training views (`batches`). Returns
+    (results, the launches of every rank summed)."""
+    log(f"# parallel: backend gloo, every rank on cuda:0 of the one card ({card}); "
+        "collectives staged through host memory")
+    a = dict(seed=args.seed, n_bg=args.n_bg, n_sky=args.n_sky, n_inst=args.n_inst,
+             width=args.width, height=args.height, views=args.views, focal=args.focal,
+             dp_steps=PARALLEL_DP_STEPS, grow_from=PARALLEL_GROW_FROM,
+             grow_steps=PARALLEL_GROW_STEPS, render_size=RENDER_SIZE, render_i=RENDER_I,
+             layered_i=PARALLEL_LAYERED_I)
+    batches = host_batches(batches)
+    # the ranks read phase 6's start from one file (each building it from
+    # the seed would take the host tens of seconds a world)
+    state_path = ROOT / "build" / "chip_smoke" / "parallel_state.npz"
+    state_path.parent.mkdir(parents=True, exist_ok=True)
+    save_state(state_sd, state_path)
+    a["state_path"] = str(state_path)
+    try:
+        t0 = time.perf_counter()
+        w2 = launch(parallel_world2, 2, backend="gloo", device=device,
+                    timeout=PARALLEL_TIMEOUT, args=(a, batches))
+        t1 = time.perf_counter()
+        w4 = launch(parallel_world4, 4, backend="gloo", device=device,
+                    timeout=PARALLEL_TIMEOUT, args=(a, batches))
+        t2 = time.perf_counter()
+    finally:
+        state_path.unlink(missing_ok=True)
+    for r in w2 + w4:
+        require(r.get("tf32", (False, False)) == (False, False),
+                f"a rank runs with TF32 on: {r.get('tf32')}")
+    total = {k: 0 for k in KERNELS}
+
+    def count(launches):
+        for k in KERNELS:
+            total[k] += launches[k]
+
+    # ---- data parallel (world 2) ----
+    for rank, r in enumerate(w2):
+        dp = r["dp"]
+        i = dp["identical"]
+        bad = {k: e for k, e in i["grad_errors"].items() if not e <= GRAD_TOL}
+        require(not bad and i["loss_rel"] <= 1e-6,
+                f"rank {rank}: DP step on identical views vs the single step: grads {bad}, "
+                f"loss rel {i['loss_rel']}")
+        require_launches(i["launches"], dict.fromkeys(FUSED_KERNELS, 1),
+                         f"rank {rank}: one data-parallel step")
+        t = dp["trainer"]
+        require_launches(t["launches"], dict.fromkeys(FUSED_KERNELS, a["dp_steps"]),
+                         f"rank {rank}: {a['dp_steps']} DPTrainer steps")
+        require(not t["nonfinite"], f"rank {rank}: non-finite metrics {t['nonfinite']}")
+        require(t["refine_events"] and t["reset_steps"] == [REFINE_EVERY],
+                f"rank {rank}: refines {t['refine_events']}, resets {t['reset_steps']}")
+        require(all(n <= t["max_intersections"] for n in t["n_intersections"]),
+                f"rank {rank}: truncated steps {t['n_intersections']}")
+        # the same two views every 3 steps: psnr rises within each stretch
+        # between opacity resets
+        cycle = len(batches) // 2
+        for lo, hi in ((0, REFINE_EVERY), (REFINE_EVERY, a["dp_steps"])):
+            same = [s for s in range(lo, hi) if s % cycle == lo % cycle]
+            require(t["psnr"][same[-1]] > t["psnr"][same[0]],
+                    f"rank {rank}: psnr on the same views did not rise over steps {same}: "
+                    f"{[t['psnr'][s] for s in same]}")
+        count(i["launches"])
+        count(t["launches"])
+    require(all(r["dp"]["trainer"]["digest"] == w2[0]["dp"]["trainer"]["digest"] for r in w2),
+            "DPTrainer: the ranks' parameters, moments or densify statistics differ")
+    dp0 = w2[0]["dp"]
+    log(f"# parallel, DP (2 ranks): one step on identical views vs the single step: worst grad "
+        f"{max(dp0['identical']['grad_errors'].values()):.3g}, loss rel "
+        f"{dp0['identical']['loss_rel']:.3g}, params max diff "
+        f"{dp0['identical']['params_max_abs_diff']:.3g}")
+    log(f"# parallel, DP (2 ranks): {a['dp_steps']} DPTrainer steps, psnr "
+        f"{[round(p, 2) for p in dp0['trainer']['psnr']]}; refine {dp0['trainer']['refine_events']}; "
+        f"every rank's state bit-equal (sha256 {dp0['trainer']['digest'][:16]})")
+    log(f"# parallel, DP step: {dp0['trainer']['ms_per_step_median']:.2f} ms wall (median after 2; "
+        f"2 ranks time-sliced on one card, gloo through host memory: not a scaling figure; "
+        f"{card})")
+
+    # ---- tile sharded (world 2) ----
+    expect = dict(band="band", dist="dist", layered="layered")
+    for rank, r in enumerate(w2):
+        tl = r["tile"]
+        for plan, name in expect.items():
+            p = tl[plan]
+            require(p["ran"] == [name] * 2, f"rank {rank}, {plan}: pipelines run {p['ran']}")
+            active = [k for k, v in p["plans_active"].items() if v]
+            require(active and active[0] == plan, f"rank {rank}, {plan}: plans {p['plans_active']}")
+            require(p["n_intersections"] <= p["max_intersections"],
+                    f"rank {rank}, {plan}: n_intersections {p['n_intersections']} > "
+                    f"{p['max_intersections']}: truncated")
+            require_view_close(p["view_errors"], args.width * args.height,
+                               f"rank {rank}, {plan} render")
+            bad = {k: e for k, e in p["grad_errors"].items() if not e <= GRAD_TOL}
+            require(not bad and p["loss_rel"] <= 1e-5,
+                    f"rank {rank}, {plan}: grads {bad}, loss rel {p['loss_rel']}")
+            require_launches(p["render_launches"],
+                             dict(expand_fused=1, blend_forward=1), f"rank {rank}, {plan} render")
+            require_launches(p["grad_launches"], dict.fromkeys(FUSED_KERNELS, 1),
+                             f"rank {rank}, {plan} gradient step")
+            count(p["render_launches"])
+            count(p["grad_launches"])
+        c = tl["classic"]
+        require(c["ran"] == ["classic"] * 2 and not c["fused_fits"],
+                f"rank {rank}, classic frame: pipelines run {c['ran']}")
+        require(c["n_intersections"] <= a["render_i"],
+                f"rank {rank}, classic frame: {c['n_intersections']} intersections > "
+                f"{a['render_i']}: truncated")
+        require_view_close(c["view_errors"], a["render_size"][0] * a["render_size"][1],
+                           f"rank {rank}, classic frame")
+        bad = {k: e for k, e in c["grad_errors"].items() if not e <= GRAD_TOL}
+        require(not bad, f"rank {rank}, classic frame: grads {bad}")
+        require_launches(c["launches"], dict(expand_pairs=2, rows_to_attr_major=2,
+                                             attr_major_to_rows=1, blend_forward=2,
+                                             blend_backward=1, dense_segment_sum=1),
+                         f"rank {rank}, classic frame (render + gradient step)")
+        count(c["launches"])
+        tr = tl["trainer"]
+        grown = [e for e in tr["growth"] if e["node"] == "max_intersections"]
+        require(grown and all(e["new"] % 1024 == 0 for e in grown),
+                f"rank {rank}: Trainer(mesh=) growth {tr['growth']}")
+        require(all(s["ran"] == ["band"] and s["band_plan"] for s in tr["steps"]),
+                f"rank {rank}: Trainer(mesh=) left the band plan: {tr['steps']}")
+        require(tr["steps"][-1]["max_intersections"] > a["grow_from"],
+                f"rank {rank}: no step ran on the grown buffer")
+        require_launches(tr["launches"], dict.fromkeys(FUSED_KERNELS, a["grow_steps"]),
+                         f"rank {rank}: {a['grow_steps']} Trainer(mesh=) steps")
+        count(tr["launches"])
+    require(all(r["tile"]["trainer"]["digest"] == w2[0]["tile"]["trainer"]["digest"]
+                for r in w2), "Trainer(mesh=): the ranks' states differ")
+    t0r = w2[0]["tile"]
+    for plan in (*expect, "classic"):
+        p = t0r[plan]
+        log(f"# parallel, {plan} (2 ranks): view {p['view_errors']}, worst grad "
+            f"{max(p['grad_errors'].values()):.3g} ({max(p['grad_errors'], key=p['grad_errors'].get)}), "
+            f"n_intersections {p['n_intersections']}")
+    single = t0r["layered"]["against_single"]
+    log(f"# parallel, layered against the single blend (reported, not held): view "
+        f"{single['view_errors']}, worst grad {max(single['grad_errors'].values()):.3g} "
+        f"({max(single['grad_errors'], key=single['grad_errors'].get)})")
+    log(f"# parallel, sharded render (band plan): {t0r['band']['render_ms']:.2f} ms wall, "
+        f"ownership {t0r['dist']['render_ms']:.2f}, layered {t0r['layered']['render_ms']:.2f}, "
+        f"single process {t0r['single_render_ms']:.2f} (2 ranks time-sliced on one card: not a "
+        f"scaling figure; {card})")
+    log(f"# parallel, Trainer(mesh=): growth {t0r['trainer']['growth']}; band plan at every step, "
+        f"buffers {[s['max_intersections'] for s in t0r['trainer']['steps']]}")
+
+    # ---- 2D (world 4) ----
+    for rank, r in enumerate(w4):
+        require(r["ran"] == dict(dp=[], mesh2d=["dist"] * 2),
+                f"rank {rank}, 2D: pipelines run {r['ran']}")
+        bad = {k: e for k, e in r["grad_errors"].items() if not e <= GRAD_TOL}
+        require(not bad and r["loss_rel"] <= 1e-5,
+                f"rank {rank}, 2D vs DP: grads {bad}, loss rel {r['loss_rel']}")
+        require(r["params_rel_diff"] <= 1e-6,
+                f"rank {rank}, 2D vs DP: params apart by {r['params_rel_diff']} (relative, where "
+                "|g| > 1e-3 of the leaf's largest)")
+        bad = {k: e for k, e in r["densify_errors"].items() if not e <= GRAD_TOL}
+        require(not bad, f"rank {rank}, 2D vs DP: densify statistics {bad}")
+        require_launches(r["launches"]["mesh2d"], dict.fromkeys(FUSED_KERNELS, 1),
+                         f"rank {rank}: one 2D step")
+        count(r["launches"]["dp"])
+        count(r["launches"]["mesh2d"])
+    for kind in ("dp", "mesh2d"):
+        require(all(r["digest"][kind] == w4[0]["digest"][kind] for r in w4),
+                f"2D world: the ranks' {kind} states differ")
+    log(f"# parallel, 2D (2 data x 2 tile) vs DP over its data axis: worst grad "
+        f"{max(w4[0]['grad_errors'].values()):.3g}, loss rel {w4[0]['loss_rel']:.3g}, psnr "
+        f"{w4[0]['psnr']}, params rel diff {w4[0]['params_rel_diff']:.3g}; step ms "
+        f"{w4[0]['step_ms']} (4 ranks time-sliced on one card: not a scaling figure)")
+    log(f"# parallel: world 2 {t1 - t0:.1f} s, world 4 {t2 - t1:.1f} s")
+    res = dict(backend="gloo", world2=w2, world4=w4, world2_seconds=t1 - t0,
+               world4_seconds=t2 - t1, launches=total)
+    return res, total
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3579,12 +4331,15 @@ def main(argv=None):
     del held_out
     del campaign_scene
     obs_res, obs_launches = phase_observability(args, card, dev, state_sd, train_batches)
+    torch.cuda.empty_cache()  # the ranks of phase 16 share the card
+    parallel_res, parallel_launches = phase_parallel(args, card, state_sd, train_batches)
     by_path = dict(serving=main_res["launches"], training=train_res["launches"],
                    classic_renders=classic_launches, classic_step=classic_step_launches,
                    render_tool=render_res["launches"], growth=growth_launches,
                    campaign=campaign_launches, nuplan=nuplan_launches,
                    eval_export=eval_export_launches, viewer=viewer_launches,
-                   observability=obs_launches, **deform_launches)
+                   observability=obs_launches, parallel=parallel_launches,
+                   **deform_launches)
     serving_captured = {}  # the kernel wrappers' arguments in one serving view
     with capturing(serving_captured), torch.no_grad():
         render_view(params, aux, cfg, batch, 10**9, device=dev)
@@ -3618,7 +4373,7 @@ def main(argv=None):
                        train=train_res, classic=classic_res, render_tool=render_res,
                        growth=growth_res, campaign=campaign_res, nuplan=nuplan_res,
                        eval_export=eval_export_res, deformables=deform_res, viewer=viewer_res,
-                       observability=obs_res, kernels=kernels, ab=ab,
+                       observability=obs_res, parallel=parallel_res, kernels=kernels, ab=ab,
                        profile=prof,
                        seconds=time.perf_counter() - t_start)
         (args.out / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

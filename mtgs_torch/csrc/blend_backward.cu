@@ -144,7 +144,7 @@ blend_backward_kernel(const float* __restrict__ slab, long long cap,
                       const int* __restrict__ tile_heads,
                       const int* __restrict__ tile_counts,
                       const int* __restrict__ tile_order,
-                      int tile_size, int tiles_x,
+                      int tile_size, int tiles_x, int tile_base,
                       const float* __restrict__ rgb, const float* __restrict__ tfin,
                       const float* __restrict__ grgb, const float* __restrict__ gt,
                       float* __restrict__ gout) {
@@ -173,8 +173,11 @@ blend_backward_kernel(const float* __restrict__ slab, long long cap,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int pix = tile_size * tile_size;
-  const float ox = (float)((t % tiles_x) * tile_size);
-  const float oy = (float)((t / tiles_x) * tile_size);
+  // tile t of this launch is global tile tile_base + t (a tile-row band
+  // of a sharded render starts past tile 0): it sets the pixel origin only
+  const int tg = tile_base + t;
+  const float ox = (float)((tg % tiles_x) * tile_size);
+  const float oy = (float)((tg / tiles_x) * tile_size);
   const long long start = (long long)tile_offsets[t] + tile_heads[t];
   const int count = tile_counts[t];
 
@@ -435,9 +438,9 @@ blend_backward_kernel(const float* __restrict__ slab, long long cap,
 template <int CT, int PIX, int C>
 cudaError_t launch_cluster(const float* slab, long long cap, const int* offs,
                            const int* heads, const int* counts, const int* order,
-                           int num_tiles, int tile_size, int tiles_x, const float* rgb,
-                           const float* tfin, const float* grgb, const float* gt,
-                           float* gout, cudaStream_t stream) {
+                           int num_tiles, int tile_size, int tiles_x, int tile_base,
+                           const float* rgb, const float* tfin, const float* grgb,
+                           const float* gt, float* gout, cudaStream_t stream) {
   constexpr int NT = PIX / (C * kPix);  // kPix pixels a thread
   static_assert(NT % 32 == 0 && NT <= 1024, "a block holds whole warps");
   cudaLaunchConfig_t cfg = {};
@@ -453,32 +456,37 @@ cudaError_t launch_cluster(const float* slab, long long cap, const int* offs,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, blend_backward_kernel<CT, C, NT>, slab, cap, offs, heads,
-                            counts, order, tile_size, tiles_x, rgb, tfin, grgb, gt, gout);
+                            counts, order, tile_size, tiles_x, tile_base, rgb, tfin, grgb,
+                            gt, gout);
 }
 
 template <int CT>
 cudaError_t launch_ct(const float* slab, long long cap, const int* offs, const int* heads,
                       const int* counts, const int* order, int num_tiles, int tile_size,
-                      int tiles_x, const float* rgb, const float* tfin, const float* grgb,
-                      const float* gt, float* gout, cudaStream_t stream) {
+                      int tiles_x, int tile_base, const float* rgb, const float* tfin,
+                      const float* grgb, const float* gt, float* gout,
+                      cudaStream_t stream) {
   if (tile_size == 32)
     return launch_cluster<CT, 1024, kCluster32>(slab, cap, offs, heads, counts, order,
-                                                num_tiles, tile_size, tiles_x, rgb, tfin,
-                                                grgb, gt, gout, stream);
+                                                num_tiles, tile_size, tiles_x, tile_base,
+                                                rgb, tfin, grgb, gt, gout, stream);
   return launch_cluster<CT, 256, 1>(slab, cap, offs, heads, counts, order, num_tiles,
-                                    tile_size, tiles_x, rgb, tfin, grgb, gt, gout, stream);
+                                    tile_size, tiles_x, tile_base, rgb, tfin, grgb, gt,
+                                    gout, stream);
 }
 
 }  // namespace
 
 // Writes rows 0 .. 5 + c_total of the zero-initialised gradient slab gout
-// [w_rows, cap]. Returns the launch's cudaError_t, else cudaGetLastError()
+// [w_rows, cap]. Tile t of the ranges is global tile tile_base + t (its
+// pixel origin), as in mtgs_blend_forward. Returns the launch's cudaError_t, else cudaGetLastError()
 // after it (0 on success); 1 for a tile size, channel count or row count
 // it does not take.
 extern "C" int mtgs_blend_backward(const float* slab, long long cap, int w_rows,
                                    const int* tile_offsets, const int* tile_heads,
                                    const int* tile_counts, const int* tile_order,
-                                   int num_tiles, int tile_size, int tiles_x, int c_total,
+                                   int num_tiles, int tile_size, int tiles_x,
+                                   int tile_base, int c_total,
                                    const float* rgb, const float* tfin,
                                    const float* grgb, const float* gt, float* gout,
                                    void* stream) {
@@ -490,8 +498,8 @@ extern "C" int mtgs_blend_backward(const float* slab, long long cap, int w_rows,
 #define MTGS_CT_CASE(N)                                                          \
   case N:                                                                        \
     err = launch_ct<N>(slab, cap, tile_offsets, tile_heads, tile_counts,         \
-                       tile_order, num_tiles, tile_size, tiles_x, rgb, tfin,     \
-                       grgb, gt, gout, s);                                       \
+                       tile_order, num_tiles, tile_size, tiles_x, tile_base,     \
+                       rgb, tfin, grgb, gt, gout, s);                            \
     break;
   switch (c_total) {
     MTGS_CT_CASE(1) MTGS_CT_CASE(2) MTGS_CT_CASE(3) MTGS_CT_CASE(4)
@@ -503,3 +511,7 @@ extern "C" int mtgs_blend_backward(const float* slab, long long cap, int w_rows,
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
+
+// The C interface's version: 2 since it takes tile_base (an earlier
+// source, without this symbol, takes the argument list without it).
+extern "C" int mtgs_blend_backward_abi(void) { return 2; }

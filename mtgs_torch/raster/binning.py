@@ -57,8 +57,14 @@ def tile_spans(
     tile_size: int,
     conics: torch.Tensor = None,
     op_eff: torch.Tensor = None,
+    row_range=None,
 ):
     """(packed, counts) per gaussian, in input order.
+
+    `row_range=(r0, r1)` (ints) clips the spans to tile rows [r0, r1) and
+    packs tmin_y band-local (tmin_y - r0): the spans of one tile-row band
+    of a sharded render (JAX `binning.tile_spans(row_range=)`). A band
+    past the last tile row (r1 <= r0) has no pairs.
 
     With `conics` and `op_eff`, the circle AABB is intersected with the
     AABB of the exact alpha support {S <= ln(255 * op_eff)} (0.5 px + 1%
@@ -85,13 +91,20 @@ def tile_spans(
     tmax_x = torch.clamp(torch.ceil((means2d[:, 0] + rx) / tile_size), 0, tiles_x).to(torch.int32)
     tmin_y = torch.clamp(torch.floor((means2d[:, 1] - ry) / tile_size), 0, tiles_y).to(torch.int32)
     tmax_y = torch.clamp(torch.ceil((means2d[:, 1] + ry) / tile_size), 0, tiles_y).to(torch.int32)
+    y_base = 0
+    if row_range is not None:
+        r0, r1 = int(row_range[0]), int(row_range[1])
+        r1 = max(r0, r1)
+        tmin_y = torch.clamp(tmin_y, r0, r1)
+        tmax_y = torch.clamp(tmax_y, r0, r1)
+        y_base = r0
     span_x = torch.clamp(tmax_x - tmin_x, 0, 255)
     span_y = torch.clamp(tmax_y - tmin_y, min=0)
     live = valid & (radii > 0)
     if op_eff is not None:
         live = live & (op_eff >= 1.0 / 255.0)
     counts = torch.where(live, span_x * span_y, torch.zeros_like(span_x)).to(torch.int32)
-    packed = tmin_x | (tmin_y << 11) | (span_x << 22)
+    packed = tmin_x | ((tmin_y - y_base) << 11) | (span_x << 22)
     return packed.to(torch.int32), counts
 
 

@@ -51,7 +51,7 @@ def _lib_backward():
     fn = cuda_build.load("blend_backward.cu").mtgs_blend_backward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, ctypes.c_longlong, i, p, p, p, p, i, i, i, i, p, p, p, p, p, p]
+        fn.argtypes = [p, ctypes.c_longlong, i, p, p, p, p, i, i, i, i, i, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -264,16 +264,18 @@ def _check_backward_inputs(slab_t, ranges, rgb_tiles, t_final, g_rgb, g_t, c_tot
 
 def blend_backward(slab_t, tile_offsets, tile_heads, tile_counts, tile_nchunks,
                    rgb_tiles, t_final, g_rgb, g_t, *, tile_size: int, tiles_x: int,
-                   c_total: int):
+                   c_total: int, tile_base: int = 0):
     """The backward blend: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Returns g_slab_t [W, cap], zero-initialised."""
+    version for CPU tensors. Returns g_slab_t [W, cap], zero-initialised.
+    Tile t of the ranges is global tile `tile_base + t` (the first tile of
+    a sharded render's band), which sets its pixel origin."""
     ranges = (tile_offsets, tile_heads, tile_counts, tile_nchunks)
     P = tile_size * tile_size
     _check_backward_inputs(slab_t, ranges, rgb_tiles, t_final, g_rgb, g_t, c_total, P)
     if slab_t.device.type == "cpu":
         return blend_backward_plain(
             slab_t, *ranges, rgb_tiles, t_final, g_rgb, g_t, tile_size=tile_size,
-            tiles_x=tiles_x, c_total=c_total)
+            tiles_x=tiles_x, c_total=c_total, tile_base=tile_base)
     if slab_t.device.type != "cuda":
         raise ValueError(f"unsupported device {slab_t.device}")
     if tile_size not in (16, 32):
@@ -286,8 +288,8 @@ def blend_backward(slab_t, tile_offsets, tile_heads, tile_counts, tile_nchunks,
     order = tile_order(tile_counts)
     err = _lib_backward()(
         slab_t.data_ptr(), cap, W, ranges[0].data_ptr(), ranges[1].data_ptr(),
-        ranges[2].data_ptr(), order.data_ptr(), T, tile_size, tiles_x, c_total,
-        *(a.data_ptr() for a in dense), g_slab.data_ptr(),
+        ranges[2].data_ptr(), order.data_ptr(), T, tile_size, tiles_x, int(tile_base),
+        c_total, *(a.data_ptr() for a in dense), g_slab.data_ptr(),
         torch.cuda.current_stream(slab_t.device).cuda_stream,
     )
     cuda_build.check(err, "blend_backward")
@@ -297,7 +299,7 @@ def blend_backward(slab_t, tile_offsets, tile_heads, tile_counts, tile_nchunks,
 
 def blend_backward_plain(slab_t, tile_offsets, tile_heads, tile_counts, tile_nchunks,
                          rgb_tiles, t_final, g_rgb, g_t, *, tile_size: int,
-                         tiles_x: int, c_total: int):
+                         tiles_x: int, c_total: int, tile_base: int = 0):
     """chunk_math's backward replay, vectorised over tiles, looping over
     chunks; a tile drops out once its chunks are done or all of its pixels
     are saturated (later chunks have exactly zero gradients). Each tile's
@@ -308,7 +310,7 @@ def blend_backward_plain(slab_t, tile_offsets, tile_heads, tile_counts, tile_nch
     W, cap = slab_t.shape
     nw = NUM_GEOM + c_total
     F = pixel_features(tile_size, dev)
-    tid = torch.arange(T, device=dev)
+    tid = tile_base + torch.arange(T, device=dev)
     ox = ((tid % tiles_x) * tile_size).to(torch.float32)
     oy = ((tid // tiles_x) * tile_size).to(torch.float32)
     P = tile_size * tile_size

@@ -178,8 +178,8 @@ def main(argv=None):
         # builds them (the classic path's binning, or the fused gather)
         if args.fused:
             pr, (packed, counts) = spans(p)
-            g = rasterize_mod._gather_fused_fwd(cfg, table_of(p, pr), packed, counts,
-                                                pr.depths)
+            g = rasterize_mod._gather_fused_fwd(rasterize_mod.FusedStatics.of(cfg),
+                                                table_of(p, pr), packed, counts, pr.depths)
             ranges = rasterize_mod._tile_ranges(g["key_s"], num_tiles, cfg.max_intersections)
             return g["slab_t"], ranges, g["total"]
         pr, b = proj_bin(p)

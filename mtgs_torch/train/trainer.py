@@ -17,10 +17,16 @@
   `deform_enable_step` the one-time switch that makes the deformable
   nodes' MLP live and freezes their canonical means.
 
+With `mesh=` (a `mtgs_torch.parallel.Mesh`, one process per rank) a
+step renders its one camera with the tiles split over the mesh axis
+`mesh_axis` (`rasterize(mesh=...)`); every rank runs the same step on the
+same view and keeps the same state. Camera data parallelism and the 2D
+(data, tile) step are `mtgs_torch.parallel.data_parallel` and `mesh2d`.
+
 Nothing is re-jitted at a stage switch, a capacity growth or the
 deformation switch: torch keeps shapes dynamic, so the JAX package's
-re-jit and speculative compile have no counterpart; its mesh machinery is
-not ported yet.
+re-jit and speculative compile have no counterpart. Its mesh rounding of
+the intersection buffer is kept (`Trainer._isect_granule`).
 """
 
 from __future__ import annotations
@@ -158,19 +164,27 @@ def render_view(
     travel_mode: Optional[str] = None,
     apply_cam_opt: Optional[bool] = None,
     device="cuda",
+    mesh=None,
+    mesh_axis: str = "tile",
+    inside_shard_map: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Full forward pass for one camera. training=False is the serving
     forward, run without autograd; apply_cam_opt (default: training)
-    applies the image's trained pose delta."""
+    applies the image's trained pose delta. mesh / mesh_axis: render this
+    camera with its tiles split over the ranks of `mesh_axis` (every rank
+    calls with the same view; `rasterize`'s mesh docs); inside_shard_map:
+    the 2D step's row render (`rasterize`)."""
     dev = resolve_device(device)
     _check_scene_device(params, dev)
     with torch.set_grad_enabled(training and torch.is_grad_enabled()):
         return _render_view(params, aux, cfg, batch, step, training, absgrad_sink,
-                            travel_mode, apply_cam_opt, dev)
+                            travel_mode, apply_cam_opt, dev,
+                            dict(mesh=mesh, shard_axis=mesh_axis,
+                                 inside_shard_map=inside_shard_map))
 
 
 def _render_view(params, aux, cfg, batch, step, training, absgrad_sink,
-                 travel_mode, apply_cam_opt, dev):
+                 travel_mode, apply_cam_opt, dev, shard_kw):
     c2w = _on(batch.c2w, dev)
     K = _on(batch.K, dev)
     if training if apply_cam_opt is None else apply_cam_opt:
@@ -198,7 +212,7 @@ def _render_view(params, aux, cfg, batch, step, training, absgrad_sink,
     viewmat = camera_to_gsplat_viewmat(c2w)
     render, alpha, info = rasterize(
         g["means"], g["quats"], g["scales"], g["opacities"], colors,
-        viewmat, K, cfg.raster_config(), absgrad_sink=absgrad_sink)
+        viewmat, K, cfg.raster_config(), absgrad_sink=absgrad_sink, **shard_kw)
 
     bg = torch.full((3,), cfg.background_color, dtype=render.dtype, device=dev)
     rgb = torch.clamp(render[..., :3] + (1.0 - alpha) * bg, 0.0, 1.0)
@@ -257,12 +271,15 @@ def _total_capacity(params: SceneParams) -> int:
 
 
 def loss_and_grads(params: SceneParams, aux: SceneAux, cfg: TrainerConfig, batch: Batch,
-                   step: int, *, device="cuda"):
+                   step: int, *, device="cuda", mesh=None, mesh_axis: str = "tile",
+                   inside_shard_map: bool = False):
     """Loss, parameter gradients and the absgrad densify signal of one
     view, from one backward pass: the absgrad sink is one more input of
     the same `torch.autograd.grad`. Marks every parameter leaf as
     requiring grad. Returns (total, losses, out, sink_grad [N, 2], grads:
-    {leaf path: gradient}), all detached."""
+    {leaf path: gradient}), all detached. With `mesh`, the view's tiles
+    are split over `mesh_axis` (`render_view`); every rank gets the
+    single-rank gradients."""
     dev = resolve_device(device)
     leaves = list(named_leaves(params))
     for _, p in leaves:
@@ -272,7 +289,8 @@ def loss_and_grads(params: SceneParams, aux: SceneAux, cfg: TrainerConfig, batch
     f32 = lambda x: None if x is None else _on(x, dev)
     with torch.enable_grad():
         out = render_view(params, aux, cfg, batch, step, training=True,
-                          absgrad_sink=sink, device=dev)
+                          absgrad_sink=sink, device=dev, mesh=mesh, mesh_axis=mesh_axis,
+                          inside_shard_map=inside_shard_map)
         losses = loss_lib.compute_losses(
             cfg.loss, gt_img=f32(batch.image), pred_img=out["rgb"],
             pred_img_appearance=out["rgb_appearance"], mask=f32(batch.mask),
@@ -334,13 +352,16 @@ def init_train_state(params: SceneParams) -> TrainState:
 
 
 def train_step(state: TrainState, aux: SceneAux, cfg: TrainerConfig, batch: Batch,
-               optim_config: OptimConfig, *, device="cuda") -> Dict[str, torch.Tensor]:
+               optim_config: OptimConfig, *, device="cuda", mesh=None,
+               mesh_axis: str = "tile") -> Dict[str, torch.Tensor]:
     """One training step on one view, updating `state` in place (params,
     Adam moments and count, densify statistics, step). Returns the
-    metrics as device tensors."""
+    metrics as device tensors. With `mesh`, the view's tiles are split
+    over `mesh_axis` and every rank takes the same step."""
     dev = resolve_device(device)
     total, losses, out, sink_grad, grads = loss_and_grads(
-        state.params, aux, cfg, batch, state.step, device=dev)
+        state.params, aux, cfg, batch, state.step, device=dev, mesh=mesh,
+        mesh_axis=mesh_axis)
     # gradient-skip guard: a non-finite gradient would be smeared over
     # every parameter by one Adam update; such a step leaves params and
     # optimizer state as they were and is counted in the metrics
@@ -388,13 +409,21 @@ class Trainer:
     def __init__(self, cfg: TrainerConfig, params: SceneParams, aux: SceneAux,
                  data: Optional[Iterator[Batch]] = None,
                  optim_config: Optional[OptimConfig] = None, seed: int = 0, device="cuda",
-                 data_factory=None, resolution_stages=None):
+                 data_factory=None, resolution_stages=None, mesh=None,
+                 mesh_axis: str = "tile"):
         """`resolution_stages` enables the multi-resolution training ladder
         (ref `custom_datamanager.py:143-152`): (start_step, scale) pairs; at
         each stage boundary `data_factory(scale)` supplies the stage's batch
         iterator and the render size and intersection buffer follow it
-        (`_set_resolution_stage`)."""
+        (`_set_resolution_stage`).
+
+        `mesh` / `mesh_axis` split every step's rasterization over the
+        ranks of the mesh axis (one camera's tiles: the whole pipeline,
+        `rasterize(mesh=...)`); every rank runs this loop on the same data
+        with the same `seed`, and their states stay alike."""
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
         _check_scene_device(params, self.device)
         self.cfg = cfg
         self.aux = aux
@@ -560,20 +589,33 @@ class Trainer:
 
     def step(self, batch: Batch) -> Dict[str, torch.Tensor]:
         return train_step(self.state, self.aux, self.cfg, batch, self.optim_config,
-                          device=self.device)
+                          device=self.device, mesh=self.mesh, mesh_axis=self.mesh_axis)
+
+    def _isect_granule(self) -> int:
+        """The rounding unit of max_intersections (JAX `_isect_granule`): the
+        fused gate's 512, times the mesh axis's size where the step shards
+        the rasterizer over it (the band plan needs I % (n * 512); without
+        it a run would leave the sharded plan after its first growth or
+        ladder stage). A mesh without that axis (the data-parallel step's)
+        does not shard the rasterizer."""
+        g = 512
+        if self.mesh is not None:
+            g *= self.mesh.shape.get(self.mesh_axis, 1)
+        return g
 
     def _set_resolution_stage(self, scale: float) -> None:
         """Switch to a ladder stage: the stage's data iterator, its render
         size taken from its first batch (kept as the next one to train
         on), and the base intersection buffer scaled by scale^2 (at least
-        2^14, rounded up to 512)."""
+        2^14, rounded up to `_isect_granule`)."""
         base = self._base_cfg
         self.data = self._data_factory(scale)
         first = next(self.data)
         h, w = first.image.shape[:2]
         self._pending_batch = first
+        gran = self._isect_granule()
         isect = max(int(base.max_intersections * scale * scale), 1 << 14)
-        isect = ((isect + 511) // 512) * 512
+        isect = ((isect + gran - 1) // gran) * gran
         self.cfg = base.replace(width=w, height=h, max_intersections=isect)
         self._cur_scale = scale
 
@@ -632,8 +674,9 @@ class Trainer:
                     n_isect = int(metrics["n_intersections"])
                     if (self.cfg.auto_grow
                             and n_isect > self.cfg.isect_grow_frac * self.cfg.max_intersections):
+                        gran = self._isect_granule()
                         new = int(self.cfg.max_intersections * self.cfg.isect_grow_factor)
-                        new = ((new + 511) // 512) * 512
+                        new = ((new + gran - 1) // gran) * gran
                         self.growth_events.append(dict(
                             step=sref, node="max_intersections",
                             old=self.cfg.max_intersections, new=new))

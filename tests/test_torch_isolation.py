@@ -20,8 +20,12 @@ from mtgs_torch.models.appearance import init_exposure
 from mtgs_torch.models.gaussians import init_node_from_points, init_skybox_node
 from mtgs_torch.models.scene_graph import init_scene
 from mtgs_torch.data import synthetic
+from mtgs_torch.parallel.data_parallel import DPTrainer, make_dp_train_step
+from mtgs_torch.parallel.mesh import Mesh
+from mtgs_torch.parallel.mesh2d import make_2d_train_step
 from mtgs_torch.tools import campaign, render
 from mtgs_torch.train import trainer
+from mtgs_torch.train.optim import OptimConfig, default_groups
 
 PKG = Path(mtgs_torch.__file__).parent
 FORBIDDEN = ("jax", "flax", "mtgs_tpu", "PIL")
@@ -97,6 +101,20 @@ def test_entry_points_raise_without_a_card(no_card):
         mtgs_torch.resolve_device()
     with pytest.raises(RuntimeError, match="cuda"):
         trainer.Trainer(cfg, params, aux, iter([_batch()]))
+    # the sharded entry points (a mesh object needs no process group here)
+    data_mesh = Mesh((1,), ("data",), {}, {"data": 0})
+    tile_mesh = Mesh((1,), ("tile",), {}, {"tile": 0})
+    optim = OptimConfig(groups=default_groups(10))
+    with pytest.raises(RuntimeError, match="cuda"):
+        trainer.render_view(params, aux, cfg, _batch(), 0, mesh=tile_mesh)
+    with pytest.raises(RuntimeError, match="cuda"):
+        trainer.loss_and_grads(params, aux, cfg, _batch(), 0, mesh=tile_mesh)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_dp_train_step(cfg, optim, data_mesh)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_2d_train_step(cfg, optim, data_mesh)
+    with pytest.raises(RuntimeError, match="cuda"):
+        DPTrainer(cfg, params, aux, iter([_batch()]), data_mesh)
     # asked for explicitly, the CPU runs
     out = trainer.render_view(params, aux, cfg, _batch(), 0, device="cpu")
     assert out["rgb"].shape == (16, 32, 3) and float(out["accumulation"].max()) > 0
