@@ -16,8 +16,11 @@ export, the deformable and WildGaussians presets on the campaign's scene,
 the viewer serving the road block over HTTP (`viewer.server`), and the
 metric writers, the trace and the two bench tools
 (`utils/observability.py`, `tools/bench_train.py`,
-`tools/profile_raster.py`), and `mtgs_torch.parallel` as ranks on the card
-(data parallel, tile-sharded rasterization, a 2D mesh); and holds
+`tools/profile_raster.py`), `mtgs_torch.parallel` as ranks on the card
+(data parallel, tile-sharded rasterization, a 2D mesh), and the data
+factory (`preprocess/`: point-cloud stacking on the card, stages 5-8 of the
+pipeline on the committed road block, `train_scene --data-config`, the
+preview page and mosaics); and holds
 the seven hand-written CUDA kernels (`csrc/expand_fused.cu`,
 `csrc/blend_forward.cu`, `csrc/blend_backward.cu`, `csrc/segment_sum.cu`,
 `csrc/expand_pairs.cu`, the two of `csrc/transpose.cu`) against their
@@ -25,8 +28,9 @@ plain PyTorch versions. Phases, each of which raises on failure:
 
   1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA;
   2. build: the six kernel sources compiled with nvcc for sm_90a, the
-     image decoders (`csrc/image_decode.cc`) and the JPEG encoder
-     (`csrc/image_encode.cc`) with the host compiler, in parallel;
+     image decoders (`csrc/image_decode.cc`), the JPEG encoder
+     (`csrc/image_encode.cc`) and the ICP core (`csrc/icp_core.cc`) with
+     the host compiler, in parallel;
   3. goldens: the kernel path's rasterize on the four gsplat-math goldens
      in tests/goldens/ (render 2e-3, alpha 1e-3);
   4. main path: the scene in the JAX state-dict layout, carried across
@@ -209,6 +213,27 @@ plain PyTorch versions. Phases, each of which raises on failure:
      the world, and every world has a deadline (PARALLEL_TIMEOUT). Wall ms
      of a DP step and of a sharded render are printed as ranks time-sliced
      on one card, not a scaling figure;
+  17. preprocess (run after phase 14, on phase 11's block before its
+     folder goes): (c) `train_scene.main --data-config` with a YAML
+     `save_yaml` writes naming phase 11's road block, DATA_CONFIG_STEPS
+     steps at 960x540, checked as phase 11 checks its run (launches
+     counted: the fused four once a step, the forward two once an eval
+     view); (a) `StackAccumulator` at nuPlan's sensor sizes (3 traversals x
+     10 frames, 8 cameras at 1920x1080 with uint8 cityscapes masks, sweeps
+     of 64 x 2,048 points out to 80 m, 30 boxes a frame; seeded) on the
+     card, then the same run with device="cpu": every frame's rgb, seen,
+     labels and box masks equal, the clouds the same rows within
+     CLOUD_ULPS float32 ulps; ms a frame of `paint_points`,
+     `points_in_boxes` and `add_frame` and the seconds of `finalize`, card
+     and CPU; (b) the committed road block materialized anew, its stage
+     inputs written (`write_stage_inputs`: the JPEGs undistorted, the
+     nuPlan raw schema) and `run_pipeline` stages 5-8 on the card:
+     registration ok with every traversal's EPE and ATE under the gates,
+     COLMAP skipped with the fixed-pose model written, dense depth skipped,
+     stacking ok with non-empty clouds; seconds a stage, ms a scan of the
+     ICP; (d) `preview.build_preview_html` of the final stage and
+     `export_traversal_videos` of every traversal (the camera tile against
+     `resize_u8(..., bicubic=True)` of the decoded JPEG);
   5. kernels: each kernel against its plain version, the fused forward two
      at the shapes of one serving view, the backward two at those of one
      training step (both blends also on the faint scene of one more
@@ -283,6 +308,7 @@ from mtgs_torch.parallel.collectives import pmean
 from mtgs_torch.parallel.data_parallel import DPTrainer, make_dp_train_step, shard_batch
 from mtgs_torch.parallel.mesh import launch, make_mesh
 from mtgs_torch.parallel.mesh2d import make_2d_train_step
+from mtgs_torch.preprocess import lidar_registration
 from mtgs_torch.raster import (
     RasterizeConfig, binning, blend, cuda_build, expand_fused, expand_pairs, rasterize,
     segment_sum,
@@ -834,14 +860,15 @@ def phase_card():
 
 
 def phase_build():
-    """The six kernel sources (one nvcc each), the image decoders and the
-    JPEG encoder (the host compiler), all at once."""
+    """The six kernel sources (one nvcc each), the image decoders, the JPEG
+    encoder and the ICP core (the host compiler), all at once."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
+    with ThreadPoolExecutor(3) as ex:
         decoders = ex.submit(image_io.build)
         encoder = ex.submit(image_io.build, image_io.ENCODE_SOURCE)
+        icp = ex.submit(image_io.build, lidar_registration.SOURCE, lidar_registration.ICP_FLAGS)
         libs = cuda_build.build()
-        host_libs = [decoders.result(), encoder.result()]
+        host_libs = [decoders.result(), encoder.result(), icp.result()]
     secs = time.perf_counter() - t0
     log(f"# build: {', '.join(p.name for p in [*libs.values(), *host_libs])} in {secs:.1f} s")
     return secs
@@ -4261,6 +4288,357 @@ def phase_parallel(args, card: str, state_sd, batches, device: str = "cuda:0") -
     return res, total
 
 
+# ------------------------------------------------------------ preprocess
+
+STACK_TRAVELS, STACK_FRAMES = 3, 10   # phase 17 (a): nuPlan's sensor sizes
+STACK_CAMS, STACK_SIZE = 8, (1920, 1080)
+STACK_BEAMS, STACK_AZIMUTHS, STACK_RANGE = 64, 2048, 80.0
+STACK_BOXES = 30
+STACK_VOXEL = 0.15                    # StackAccumulator's default
+STACK_SEED = 17
+CLOUD_ULPS = 1                        # the card's clouds against the CPU's, in float32 ulps
+DATA_CONFIG_STEPS = 20                # phase 17 (c): train_scene.main --data-config
+REGISTRATION_GATES = dict(EPE=1.0, ATE=0.5)  # register_traversals' exclusion gates
+MOSAIC_TILE = 320                     # export_traversal_videos' tile width
+
+
+def float32_ulps(got: np.ndarray, want: np.ndarray) -> int:
+    """The largest distance in float32 ulps between two float32 arrays."""
+    a = np.ascontiguousarray(got, np.float32).view(np.int32).astype(np.int64)
+    b = np.ascontiguousarray(want, np.float32).view(np.int32).astype(np.int64)
+    a = np.where(a < 0, -(a & 0x7FFFFFFF), a)
+    b = np.where(b < 0, -(b & 0x7FFFFFFF), b)
+    return int(np.abs(a - b).max()) if a.size else 0
+
+
+def stack_inputs(seed: int) -> dict:
+    """Seeded stacking inputs at nuPlan's sizes: per traversal, STACK_CAMS
+    uint8 1920x1080 images and cityscapes label masks (0..18) around the
+    ego; per frame, a STACK_BEAMS x STACK_AZIMUTHS sweep out to STACK_RANGE
+    m, an ego pose and STACK_BOXES boxes with their track tokens (made on
+    demand from the frame's seed)."""
+    rng = np.random.default_rng(seed)
+    W, H = STACK_SIZE
+    f = 1545.0 * W / 1920  # nuPlan's focal length at 1920 wide
+    K = np.array([[f, 0.0, W / 2], [0.0, f, H / 2 + 20.0 * W / 1920], [0.0, 0.0, 1.0]])
+    R_cv = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    cams = []
+    for yaw in np.linspace(0.0, 2 * np.pi, STACK_CAMS, endpoint=False):
+        c, s = np.cos(yaw), np.sin(yaw)
+        m = np.eye(4)
+        m[:3, :3] = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]]) @ R_cv
+        m[:3, 3] = [1.5 * c, 1.0 * s, 1.6]
+        cams.append(m)
+    images = [[rng.integers(0, 256, (H, W, 3), dtype=np.uint8) for _ in range(STACK_CAMS)]
+              for _ in range(STACK_TRAVELS)]
+    masks = [[rng.integers(0, 19, (H, W), dtype=np.uint8) for _ in range(STACK_CAMS)]
+             for _ in range(STACK_TRAVELS)]
+    elev = np.deg2rad(np.linspace(-25.0, 15.0, STACK_BEAMS))
+    azim = np.linspace(-np.pi, np.pi, STACK_AZIMUTHS, endpoint=False)
+    ee, aa = np.meshgrid(elev, azim, indexing="ij")
+    dirs = np.stack([np.cos(ee) * np.cos(aa), np.cos(ee) * np.sin(aa), np.sin(ee)],
+                    -1).reshape(-1, 3)
+
+    def frame(t: int, f: int):
+        r = np.random.default_rng((seed, t, f))
+        pts = (dirs * r.uniform(2.0, STACK_RANGE, (len(dirs), 1))).astype(np.float32)
+        yaw = 0.01 * t
+        e2g = np.eye(4)
+        e2g[:3, :3] = [[np.cos(yaw), -np.sin(yaw), 0.0], [np.sin(yaw), np.cos(yaw), 0.0],
+                       [0.0, 0.0, 1.0]]
+        e2g[:3, 3] = [2.5 * f - 10.0, -1.8 + 0.3 * t, 0.0]
+        boxes = np.concatenate([
+            r.uniform(-30.0, 30.0, (STACK_BOXES, 2)), r.uniform(-1.0, 1.0, (STACK_BOXES, 1)),
+            r.uniform(3.5, 5.0, (STACK_BOXES, 1)), r.uniform(1.7, 2.1, (STACK_BOXES, 1)),
+            r.uniform(1.4, 2.0, (STACK_BOXES, 1)), r.uniform(-np.pi, np.pi, (STACK_BOXES, 1))], 1)
+        return pts, e2g, boxes, [f"trk{t}_{b}" for b in range(STACK_BOXES)]
+
+    return dict(K=K, cams=cams, images=images, masks=masks, frame=frame)
+
+
+def stack_run(inputs: dict, dev, out: Path, want=None) -> dict:
+    """StackAccumulator over every frame on `dev`, each step timed between
+    synchronizes; with `want` (the card's run), every frame's rgb, seen,
+    semantic labels and box masks must equal it. Returns times, the
+    per-frame outputs and the written clouds."""
+    from mtgs_torch.preprocess.stack_point_cloud import (
+        StackAccumulator, paint_points, points_in_boxes,
+    )
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    acc = StackAccumulator(voxel=STACK_VOXEL, device=dev)
+    Ks = [inputs["K"]] * STACK_CAMS
+    paint_ms, boxes_ms, add_ms, frames = [], [], [], []
+    for t in range(STACK_TRAVELS):
+        imgs = [torch.as_tensor(im, device=dev) for im in inputs["images"][t]]
+        masks = [torch.as_tensor(m, device=dev) for m in inputs["masks"][t]]
+        for f in range(STACK_FRAMES):
+            pts, e2g, boxes, toks = inputs["frame"](t, f)
+            pts = torch.as_tensor(pts, device=dev)
+            sync()
+            t0 = time.perf_counter()
+            rgb, seen, sem = paint_points(pts, imgs, inputs["cams"], Ks, masks, device=dev)
+            sync()
+            t1 = time.perf_counter()
+            bg, per_box = points_in_boxes(pts, boxes, device=dev)
+            sync()
+            t2 = time.perf_counter()
+            acc.add_frame(pts, rgb, seen, sem, e2g, boxes, toks)
+            sync()
+            t3 = time.perf_counter()
+            paint_ms.append(1e3 * (t1 - t0))
+            boxes_ms.append(1e3 * (t2 - t1))
+            add_ms.append(1e3 * (t3 - t2))
+            got = [x.cpu() for x in (rgb, seen, sem, bg, per_box)]
+            if want is not None:
+                w = want["frames"][len(frames)]
+                bad = [n for n, a, b in zip(("rgb", "seen", "sem", "background", "boxes"), got, w)
+                       if not torch.equal(a, b)]
+                require(not bad, f"stacking: frame ({t}, {f}) on the CPU differs from the card "
+                                 f"in {bad}")
+            frames.append(got if want is None else None)
+    sync()
+    t0 = time.perf_counter()
+    written = acc.finalize(out)
+    sync()
+    finalize_s = time.perf_counter() - t0
+    return dict(paint_ms=paint_ms, boxes_ms=boxes_ms, add_frame_ms=add_ms, frames=frames,
+                finalize_s=finalize_s, written=written,
+                seen_fraction=float(np.mean([float(x[1].float().mean()) for x in frames]))
+                if want is None else None)
+
+
+def stack_phase(dev, work: Path, card: str) -> dict:
+    """Phase 17 (a): the stacking at nuPlan's sizes on the card, then the
+    same run on the CPU: every frame's outputs equal, the clouds the same
+    rows within CLOUD_ULPS."""
+    from mtgs_torch.utils.pointcloud import load_pcd
+
+    t0 = time.perf_counter()
+    inputs = stack_inputs(STACK_SEED)
+    setup_s = time.perf_counter() - t0
+    gpu = stack_run(inputs, dev, work / "card")
+    cpu = stack_run(inputs, torch.device("cpu"), work / "cpu", want=gpu)
+    names = sorted(p.relative_to(work / "card") for p in gpu["written"])
+    require(names == sorted(p.relative_to(work / "cpu") for p in cpu["written"]),
+            "stacking: the card and the CPU wrote different files")
+    require(Path("stacked_point_cloud/background.pcd.npz") in names and len(names) > 1,
+            f"stacking: no background or no instance cloud ({len(names)} files)")
+    worst, rows = 0, {}
+    for rel in names:
+        (gx, gc), (cx, cc) = load_pcd(work / "card" / rel), load_pcd(work / "cpu" / rel)
+        require(gx.shape == cx.shape, f"stacking: {rel}: {gx.shape[0]} rows on the card, "
+                                      f"{cx.shape[0]} on the CPU")
+        worst = max(worst, float32_ulps(gx, cx), float32_ulps(gc, cc))
+        rows[str(rel)] = int(gx.shape[0])
+    require(worst <= CLOUD_ULPS, f"stacking: clouds {worst} float32 ulps apart (> {CLOUD_ULPS})")
+    n_pts = STACK_BEAMS * STACK_AZIMUTHS
+
+    def med(xs):
+        return float(np.median(xs[1:]))  # the first frame pays the first calls
+
+    res = dict(
+        card=card, setup_s=setup_s, frames=STACK_TRAVELS * STACK_FRAMES, points=n_pts,
+        cameras=STACK_CAMS, size=list(STACK_SIZE), boxes=STACK_BOXES,
+        seen_fraction=gpu["seen_fraction"], clouds=len(names),
+        background_rows=rows["stacked_point_cloud/background.pcd.npz"],
+        instance_rows=sum(v for k, v in rows.items() if k.startswith("instance")),
+        cloud_ulps=worst,
+        card_ms=dict(paint_points=med(gpu["paint_ms"]), points_in_boxes=med(gpu["boxes_ms"]),
+                     add_frame=med(gpu["add_frame_ms"]), finalize_s=gpu["finalize_s"]),
+        cpu_ms=dict(paint_points=med(cpu["paint_ms"]), points_in_boxes=med(cpu["boxes_ms"]),
+                    add_frame=med(cpu["add_frame_ms"]), finalize_s=cpu["finalize_s"]),
+        cpu_threads=torch.get_num_threads())
+    log(f"# preprocess ({card}): stacking {res['frames']} frames of {n_pts} points x "
+        f"{STACK_CAMS} cameras at {STACK_SIZE[0]}x{STACK_SIZE[1]} x {STACK_BOXES} boxes "
+        f"(seen {res['seen_fraction']:.3f}): card paint_points {res['card_ms']['paint_points']:.2f}"
+        f" ms/frame, points_in_boxes {res['card_ms']['points_in_boxes']:.2f}, add_frame "
+        f"{res['card_ms']['add_frame']:.2f}, finalize {gpu['finalize_s']:.3f} s; CPU "
+        f"({res['cpu_threads']} threads) {res['cpu_ms']['paint_points']:.2f} / "
+        f"{res['cpu_ms']['points_in_boxes']:.2f} / {res['cpu_ms']['add_frame']:.2f} ms/frame, "
+        f"finalize {cpu['finalize_s']:.3f} s; every frame equal, {len(names)} clouds "
+        f"({res['background_rows']} background rows, {res['instance_rows']} instance rows) within "
+        f"{worst} ulp")
+    return res
+
+
+def timed_stages(stage_s: dict, scan_ms: list):
+    """Wrap each pipeline stage (seconds between synchronizes) and the ICP's
+    register_scan (ms a scan) for the `with` block."""
+    from mtgs_torch.preprocess import lidar_registration, pipeline
+
+    stack = contextlib.ExitStack()
+
+    def stage(name):
+        def wrap(fn):
+            def call(vs, cfg, device):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    return fn(vs, cfg, device)
+                finally:
+                    torch.cuda.synchronize()
+                    stage_s[name] = time.perf_counter() - t0
+            return call
+        return wrap
+
+    def scan(fn):
+        def call(self, xyz):
+            t0 = time.perf_counter()
+            out = fn(self, xyz)
+            scan_ms.append(dict(ms=1e3 * (time.perf_counter() - t0), points=len(xyz)))
+            return out
+        return call
+
+    for name in list(pipeline.STAGES):
+        stack.enter_context(wrapped_item(pipeline.STAGES, name, stage(name)))
+    stack.enter_context(wrapped(lidar_registration.LidarOdometry, "register_scan", scan))
+    return stack
+
+
+@contextlib.contextmanager
+def wrapped_item(mapping: dict, key, wrap):
+    saved = mapping[key]
+    mapping[key] = wrap(saved)
+    try:
+        yield
+    finally:
+        mapping[key] = saved
+
+
+def pipeline_phase(fx, dev, work: Path, card: str) -> dict:
+    """Phase 17 (b): the committed road block through `run_pipeline` stages
+    5-8 on the card, from the raw stage `write_stage_inputs` builds (nuPlan's
+    raw schema, the JPEGs undistorted): registration ok with every
+    traversal's EPE and ATE under the gates, COLMAP skipped with the
+    fixed-pose model written, dense depth skipped, stacking ok with
+    non-empty clouds. Then (d): the preview page of the final stage and the
+    mosaics of every traversal."""
+    from mtgs_torch.preprocess import pipeline as prep
+    from mtgs_torch.preprocess.export_videos import export_traversal_videos
+    from mtgs_torch.preprocess.video_scene import VideoScene
+    from mtgs_torch.tools import preview
+    from mtgs_torch.utils.pointcloud import load_pcd
+
+    t0 = time.perf_counter()
+    root = fx.materialize(work / "road_block")
+    raw = fx.write_stage_inputs(root)
+    vs = VideoScene(work, "road_block")
+    vs.save(raw, "raw")
+    setup_s = time.perf_counter() - t0
+    stage_s, scan_ms = {}, []
+    with timed_stages(stage_s, scan_ms):
+        t0 = time.perf_counter()
+        status = prep.run_pipeline(work, "road_block", {}, start=5, stop=8, device=dev)
+        run_s = time.perf_counter() - t0
+    require(status["lidar_registration"] == "ok" and status["stack_point_cloud"] == "ok",
+            f"run_pipeline: {status}")
+    require(status["colmap"].startswith("skipped: fixed-pose model written")
+            and (vs.colmap_path / "sparse_model" / "images.bin").exists(), f"colmap: {status}")
+    require(status["dense_depth"].startswith("skipped: UniDepth"), f"dense_depth: {status}")
+    registered = vs.load("registered")
+    errors = {tok: info["registration_errors"] for tok, info in registered.items()}
+    bad = {tok: e for tok, e in errors.items()
+           if registered[tok]["registration_excluded"]
+           or any(e[k] > gate for k, gate in REGISTRATION_GATES.items())}
+    require(not bad, f"lidar_registration: traversals over the gates {bad}")
+    clouds = {str(p.relative_to(root)): len(load_pcd(p)[0]) for p in sorted(root.rglob("*.pcd.npz"))}
+    require(clouds.get("stacked_point_cloud/background.pcd.npz", 0) > 0
+            and all(n > 0 for n in clouds.values()), f"stack_point_cloud: clouds {clouds}")
+    final = vs.load()
+    require(vs.latest_stage() == "final", f"latest stage {vs.latest_stage()}")
+
+    # (d) the preview page and the mosaics
+    t0 = time.perf_counter()
+    page = preview.build_preview_html(final, work / "preview.html")
+    preview_ms = 1e3 * (time.perf_counter() - t0)
+    text = page.read_text()
+    require(all(f'"{t.split("-")[-1]}": {{"pts"' in text for t in final), "preview: traversals")
+    t0 = time.perf_counter()
+    mosaics = export_traversal_videos(vs, tile_width=MOSAIC_TILE, make_video=False)
+    mosaic_s = time.perf_counter() - t0
+    require(len(mosaics) == sum(len(i["frame_infos"]) for i in final.values()),
+            f"{len(mosaics)} mosaics")
+    first = final[sorted(final)[0]]["frame_infos"][0]["cams"]["CAM_F0"]["data_path"]
+    camera = image_io.read_image(root / "raw_images" / first)
+    th = MOSAIC_TILE * camera.shape[0] // camera.shape[1]
+    tile = image_io.resize_u8(camera, (MOSAIC_TILE, th), bicubic=True)
+    got = image_io.read_image(mosaics[0])
+    require(got.shape == (th, 2 * MOSAIC_TILE, 3) and np.array_equal(got[:, :MOSAIC_TILE], tile),
+            "mosaic: the camera tile")
+    n_scan = len(scan_ms)
+    res = dict(card=card, setup_s=setup_s, run_s=run_s, status=status, stage_s=stage_s,
+               icp_scans=n_scan, icp_ms_per_scan=float(np.median([s["ms"] for s in scan_ms])),
+               icp_points_per_scan=float(np.mean([s["points"] for s in scan_ms])),
+               registration_errors=errors, clouds=clouds, preview_ms=preview_ms,
+               preview_bytes=len(text), mosaics=len(mosaics),
+               mosaic_ms=1e3 * mosaic_s / max(len(mosaics), 1))
+    log(f"# preprocess ({card}): stages 5-8 of the road block in {run_s:.2f} s (inputs "
+        f"{setup_s:.1f} s): {', '.join(f'{k} {v:.3f} s' for k, v in stage_s.items())}; ICP "
+        f"{res['icp_ms_per_scan']:.1f} ms/scan ({n_scan} scans of ~"
+        f"{res['icp_points_per_scan']:.0f} points); errors {errors}; clouds {clouds}")
+    log(f"# preprocess ({card}): preview page {preview_ms:.1f} ms ({len(text)} bytes); "
+        f"{len(mosaics)} mosaics at {MOSAIC_TILE} px tiles, {res['mosaic_ms']:.1f} ms each")
+    return res
+
+
+def data_config_phase(fx, dev, block: Path, work: Path, card: str, untrained_psnr: float):
+    """Phase 17 (c): `train_scene.main --data-config` on phase 11's road
+    block, named by a YAML `save_yaml` writes: DATA_CONFIG_STEPS steps of
+    the `mtgs` preset at 960x540, checked as phase 11 checks its run (the
+    fused four once per step, the forward two once per eval view, every
+    step finite and untruncated), the run's data folder the block's."""
+    from mtgs_torch.preprocess.roadblock_config import RoadBlockConfig, save_yaml
+
+    cfg_path = work / "road_block.yaml"
+    save_yaml(RoadBlockConfig(road_block_name=block.name, data_root=str(block.parent)),
+              cfg_path)
+    out = work / "data_config_run"
+    argv = ["--data-config", str(cfg_path), "--method", "mtgs", "--scale", "0.5",
+            "--width", str(NUPLAN_SIZE[0]), "--height", str(NUPLAN_SIZE[1]),
+            "--travels", "0", "1", "--eval-travels", "2", "--steps", str(DATA_CONFIG_STEPS),
+            "--device", str(dev), "--out", str(out)]
+    rec = dict(steps=[], evals=[])
+    printed, launches, wall_s = nuplan_main(argv, rec)
+    require_nuplan_run(launches, rec, DATA_CONFIG_STEPS, "train_scene.main --data-config")
+    rc = json.loads((out / "run_config.json").read_text())
+    require(rc["data"] == str(block.absolute()), f"--data-config trained on {rc['data']}")
+    result = json.loads((out / "eval_result.json").read_text())
+    require(result["num_images"] == rec["evals"][0]["views"] and np.isfinite(result["psnr"]),
+            f"eval {result}")
+    res = dict(card=card, steps=DATA_CONFIG_STEPS, wall_s=wall_s, eval=result,
+               untrained_psnr=untrained_psnr, launches=launches,
+               ms_per_step_median=float(np.median([r["ms"] for r in rec["steps"]][2:])),
+               config=cfg_path.read_text())
+    log(f"# preprocess ({card}): train_scene --data-config {DATA_CONFIG_STEPS} steps in "
+        f"{wall_s:.1f} s, ms/step median {res['ms_per_step_median']:.2f}; eval psnr "
+        f"{result['psnr']:.3f} dB (untrained {untrained_psnr:.3f}); launches {launches}")
+    return res, launches
+
+
+def phase_preprocess(card: str, dev, block: Path, untrained_psnr: float):
+    """Phase 17: the data factory. (a) stacking at nuPlan's sizes on the
+    card against the CPU, (b) the committed road block through stages 5-8,
+    (c) train_scene --data-config on phase 11's block, (d) the preview page
+    and mosaics. Returns (results, the launches of (c))."""
+    fx = nuplan_fixture()
+    work = Path(tempfile.mkdtemp(prefix="preprocess_", dir=ROOT / "build"))
+    t0 = time.perf_counter()
+    try:
+        config_res, launches = data_config_phase(fx, dev, block, work, card, untrained_psnr)
+        stack_res = stack_phase(dev, work / "stack", card)
+        pipeline_res = pipeline_phase(fx, dev, work, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res = dict(stacking=stack_res, pipeline=pipeline_res, data_config=config_res,
+               phase_s=time.perf_counter() - t0)
+    log(f"# preprocess ({card}): phase 17 took {res['phase_s']:.1f} s")
+    return res, launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4324,6 +4702,8 @@ def main(argv=None):
         eval_export_res, eval_export_launches = phase_eval_export(
             card, dev, nuplan_res, held_out, weights, profile=args.profile)
         viewer_res, viewer_launches = phase_viewer(card, dev, held_out, weights)
+        preprocess_res, preprocess_launches = phase_preprocess(
+            card, dev, held_out["work"] / "road_block", nuplan_res["untrained_eval"]["psnr"])
     finally:
         shutil.rmtree(held_out["work"], ignore_errors=True)
         for path in weights:
@@ -4339,7 +4719,7 @@ def main(argv=None):
                    campaign=campaign_launches, nuplan=nuplan_launches,
                    eval_export=eval_export_launches, viewer=viewer_launches,
                    observability=obs_launches, parallel=parallel_launches,
-                   **deform_launches)
+                   data_config=preprocess_launches, **deform_launches)
     serving_captured = {}  # the kernel wrappers' arguments in one serving view
     with capturing(serving_captured), torch.no_grad():
         render_view(params, aux, cfg, batch, 10**9, device=dev)
@@ -4373,7 +4753,8 @@ def main(argv=None):
                        train=train_res, classic=classic_res, render_tool=render_res,
                        growth=growth_res, campaign=campaign_res, nuplan=nuplan_res,
                        eval_export=eval_export_res, deformables=deform_res, viewer=viewer_res,
-                       observability=obs_res, parallel=parallel_res, kernels=kernels, ab=ab,
+                       observability=obs_res, parallel=parallel_res, preprocess=preprocess_res,
+                       kernels=kernels, ab=ab,
                        profile=prof,
                        seconds=time.perf_counter() - t_start)
         (args.out / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

@@ -16,12 +16,22 @@ has an obvious counterpart:
     utils/     point-cloud IO and filtering; metric writers, step timing and
                traces (observability)
     eval/      metric suite + the per-traversal eval pipeline
-    tools/     rendering, the training campaign, per-road-block training,
-               gaussian export, the train-step bench and the rasterizer
-               stage profile
+    tools/     rendering, the training campaign, per-road-block training
+               (also from a road-block data config), gaussian export, the
+               train-step bench, the rasterizer stage profile and the
+               traversal preview
     viewer/    the HTTP viewer of a trained run
+    parallel/  meshes of ranks over torch.distributed, collectives, camera
+               data parallelism and the tile-sharded rasterizer
+    preprocess/ the offline data factory: the staged video_scene_dict store,
+               road-block configs (own YAML reader and writer), traversal
+               splitting and preview mosaics, multi-traversal LiDAR
+               registration over the host ICP core (csrc/icp_core.cc), COLMAP
+               interop, the depth codec, the gated model stages, point-cloud
+               stacking on the card, and the 8-stage pipeline driver
 
-This package imports torch, numpy and scipy only — never jax, mtgs_tpu or PIL.
+This package imports torch, numpy and scipy only — never jax, flax, mtgs_tpu,
+PIL or PyYAML.
 Entry points take an explicit `device` that defaults to "cuda" and raise
 when no card is present; they never fall back to the CPU on their own.
 """

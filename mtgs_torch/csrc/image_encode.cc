@@ -1,6 +1,6 @@
 // Host image encoding and 8-bit resampling for the port's eval and export
-// layers: baseline JPEG encoding of RGB images and PIL's bilinear resize of
-// uint8 images. A plain C interface, loaded with ctypes by
+// layers: baseline JPEG encoding of RGB images and PIL's bilinear and
+// bicubic resizes of uint8 images. A plain C interface, loaded with ctypes by
 // mtgs_torch/data/image_io.py, which builds this file with the host C++
 // compiler on first use.
 //
@@ -27,7 +27,8 @@
 //     SOF0 (components 1, 2, 3 at 2x2, 1x1, 1x1), four DHT (DC0, AC0, DC1,
 //     AC1), SOS, EOI.
 //
-// The resize follows PIL's Resample.c for the bilinear filter (support 1):
+// The resize follows PIL's Resample.c for the bilinear filter (support 1)
+// and the bicubic one (support 2, a = -0.5; Image.resize's default filter):
 // double weights normalised per output pixel, converted to 22-bit fixed
 // point with sign-aware rounding, a horizontal pass over the rows the
 // vertical pass needs, then the vertical pass, each output rounded at 2^21
@@ -281,12 +282,27 @@ void set_error(char* err, int errlen, const std::string& msg) {
   if (err && errlen > 0) std::snprintf(err, size_t(errlen), "%s", msg.c_str());
 }
 
-// PIL's precompute_coeffs for the bilinear filter, then normalize_coeffs_8bpc
-int bilinear_coeffs(int in_size, int out_size, std::vector<int>& bounds,
+double bilinear_filter(double x) {
+  if (x < 0.0) x = -x;
+  return x < 1.0 ? 1.0 - x : 0.0;
+}
+
+double bicubic_filter(double x) {
+  const double a = -0.5;
+  if (x < 0.0) x = -x;
+  if (x < 1.0) return ((a + 2.0) * x - (a + 3.0)) * x * x + 1;
+  if (x < 2.0) return (((x - 5) * x + 8) * x - 4) * a;
+  return 0.0;
+}
+
+// PIL's precompute_coeffs for the bilinear or bicubic filter, then
+// normalize_coeffs_8bpc
+int resample_coeffs(int in_size, int out_size, bool bicubic, std::vector<int>& bounds,
                     std::vector<int32_t>& kk) {
+  double (*filter)(double) = bicubic ? bicubic_filter : bilinear_filter;
   double scale = double(in_size) / out_size;
   double filterscale = scale < 1.0 ? 1.0 : scale;
-  double support = 1.0 * filterscale;
+  double support = (bicubic ? 2.0 : 1.0) * filterscale;
   int ksize = int(std::ceil(support)) * 2 + 1;
   std::vector<double> pre(size_t(out_size) * ksize, 0.0);
   bounds.assign(size_t(out_size) * 2, 0);
@@ -300,9 +316,7 @@ int bilinear_coeffs(int in_size, int out_size, std::vector<int>& bounds,
     xmax -= xmin;
     double* k = &pre[size_t(xx) * ksize];
     for (int x = 0; x < xmax; ++x) {
-      double a = (x + xmin - center + 0.5) * ss;
-      if (a < 0.0) a = -a;
-      double v = a < 1.0 ? 1.0 - a : 0.0;
+      double v = filter((x + xmin - center + 0.5) * ss);
       k[x] = v;
       ww += v;
     }
@@ -469,17 +483,18 @@ int64_t mtgs_jpeg_encode(const uint8_t* rgb, int height, int width, int quality,
   return w.n;
 }
 
-// uint8 [h, w, c] -> [oh, ow, c] by PIL's bilinear resample; 0 on success.
+// uint8 [h, w, c] -> [oh, ow, c] by PIL's bilinear (bicubic = 0) or bicubic
+// resample; 0 on success.
 int mtgs_resize_u8(const uint8_t* in, int h, int w, int c, uint8_t* out, int oh, int ow,
-                   char* err, int errlen) {
+                   int bicubic, char* err, int errlen) {
   if (h < 1 || w < 1 || oh < 1 || ow < 1 || c < 1) {
     set_error(err, errlen, "empty image");
     return 1;
   }
   std::vector<int> hb, vb;
   std::vector<int32_t> hk, vk;
-  const int hks = bilinear_coeffs(w, ow, hb, hk);
-  const int vks = bilinear_coeffs(h, oh, vb, vk);
+  const int hks = resample_coeffs(w, ow, bicubic != 0, hb, hk);
+  const int vks = resample_coeffs(h, oh, bicubic != 0, vb, vk);
   const bool need_h = ow != w, need_v = oh != h;
   // the rows the vertical pass reads
   const int first = need_v ? vb[0] : 0;

@@ -29,9 +29,10 @@ through `csrc/image_encode.cc`:
 * `write_jpeg(path, rgb_u8)` — the bytes of `PIL.Image.fromarray(rgb).save(path)`
   for a .jpg path: baseline JPEG at PIL's defaults (quality 75, 4:2:0,
   libjpeg's islow DCT and standard Huffman tables).
-* `resize_u8(img_u8, (w, h), nearest)` — `np.asarray(PIL.Image.fromarray(img)
-  .resize((w, h), NEAREST or BILINEAR))` for uint8 [H, W] or [H, W, 3]:
-  PIL's 8-bit resample (22-bit fixed-point weights), not its float one.
+* `resize_u8(img_u8, (w, h), nearest, bicubic)` —
+  `np.asarray(PIL.Image.fromarray(img).resize((w, h), NEAREST, BILINEAR or
+  BICUBIC))` for uint8 [H, W] or [H, W, 3]: PIL's 8-bit resample (22-bit
+  fixed-point weights), not its float one.
 
 The C++ libraries are compiled on first use by the host compiler (`$CXX`,
 else `c++`) into `build/mtgs_torch/`, under a name that hashes the source and
@@ -74,29 +75,35 @@ def _compiler(source: Path) -> str:
     if path is None:
         raise RuntimeError(
             f"mtgs_torch: no C++ compiler {cxx!r} on PATH; mtgs_torch/csrc/{source.name} "
-            f"(the image decoders, or the JPEG encoder and uint8 resize) is built with it "
-            f"on first use")
+            f"(the image decoders, the JPEG encoder and uint8 resize, or the ICP core) is "
+            f"built with it on first use")
     return path
 
 
-def library_path(source: Path = SOURCE) -> Path:
-    """Where the library of this source and these flags lives."""
+def library_path(source: Path = SOURCE, flags: Tuple[str, ...] = CXX_FLAGS) -> Path:
+    """Where the library of this source and these flags lives. A
+    `-march=native` build also hashes the compiler's macros for this host's
+    CPU, so a build directory carried to another machine is not reused."""
     h = hashlib.sha256(source.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
+    h.update(" ".join(flags).encode())
+    if "-march=native" in flags:
+        proc = subprocess.run([_compiler(source), "-march=native", "-dM", "-E", "-x", "c++",
+                               os.devnull], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        h.update(proc.stdout)
     return BUILD_DIR / f"{source.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build(source: Path = SOURCE) -> Path:
+def build(source: Path = SOURCE, flags: Tuple[str, ...] = CXX_FLAGS) -> Path:
     """Compile a host library (the decoders by default) unless it exists;
     returns its path. The library is written under a temporary name and
     renamed into place, so processes building at once agree. Raises with
     the compiler's output."""
-    out = library_path(source)
+    out = library_path(source, flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_compiler(source), *CXX_FLAGS, "-o", str(tmp), str(source)]
+    cmd = [_compiler(source), *flags, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -116,7 +123,7 @@ def _enc_lib() -> ctypes.CDLL:
             lib.mtgs_jpeg_bound.restype = i64
             lib.mtgs_jpeg_encode.argtypes = [u8p, i32, i32, i32, u8p, i64, cp, i32]
             lib.mtgs_jpeg_encode.restype = i64
-            lib.mtgs_resize_u8.argtypes = [u8p, i32, i32, i32, u8p, i32, i32, cp, i32]
+            lib.mtgs_resize_u8.argtypes = [u8p, i32, i32, i32, u8p, i32, i32, i32, cp, i32]
             lib.mtgs_resize_u8.restype = i32
             _ENC_LIB = lib
         return _ENC_LIB
@@ -233,6 +240,16 @@ def read_image(path) -> np.ndarray:
     if data[:2] == b"\xff\xd8":
         return _decode_jpeg(data, path)
     return _read_png(data, path)[0]
+
+
+def to_rgb(img: np.ndarray) -> np.ndarray:
+    """`PIL.Image.convert("RGB")` of a decoded 8-bit grey, grey + alpha, RGB
+    or RGBA array: grey replicated, alpha dropped."""
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.shape[-1] in (1, 2):
+        img = img[..., :1]
+    return np.ascontiguousarray(np.broadcast_to(img[..., :3], img.shape[:2] + (3,)))
 
 
 def _luma24(rgb: np.ndarray) -> np.ndarray:
@@ -372,13 +389,18 @@ def write_jpeg(path, rgb_u8: np.ndarray, quality: int = 75) -> Path:
     return path
 
 
-def resize_u8(img_u8: np.ndarray, size: Tuple[int, int], nearest: bool = False) -> np.ndarray:
-    """`np.asarray(PIL.Image.fromarray(img).resize(size, NEAREST or BILINEAR))`
-    for uint8 [H, W] (mode "L") or [H, W, C]; size is (width, height)."""
+def resize_u8(img_u8: np.ndarray, size: Tuple[int, int], nearest: bool = False,
+              bicubic: bool = False) -> np.ndarray:
+    """`np.asarray(PIL.Image.fromarray(img).resize(size, NEAREST, BILINEAR
+    or BICUBIC))` for uint8 [H, W] (mode "L") or [H, W, C]; size is (width,
+    height). BICUBIC (`bicubic=True`) is what `Image.resize` takes when given
+    no filter."""
     img = np.asarray(img_u8)
     if img.dtype != np.uint8 or img.ndim not in (2, 3):
         raise ValueError(f"resize_u8 takes uint8 [H, W] or [H, W, C], got {img.dtype} "
                          f"{img.shape}")
+    if nearest and bicubic:
+        raise ValueError("resize_u8: nearest or bicubic, not both")
     h, w = img.shape[:2]
     ow, oh = int(size[0]), int(size[1])
     if ow < 1 or oh < 1:
@@ -393,6 +415,7 @@ def resize_u8(img_u8: np.ndarray, size: Tuple[int, int], nearest: bool = False) 
     c = 1 if img.ndim == 2 else img.shape[2]
     out = np.empty((oh, ow) + img.shape[2:], np.uint8)
     err = ctypes.create_string_buffer(_ERR_LEN)
-    if _enc_lib().mtgs_resize_u8(_ptr(src), h, w, c, _ptr(out), oh, ow, err, _ERR_LEN):
+    if _enc_lib().mtgs_resize_u8(_ptr(src), h, w, c, _ptr(out), oh, ow, int(bicubic), err,
+                                 _ERR_LEN):
         raise ValueError(f"resize_u8: {err.value.decode()}")
     return out

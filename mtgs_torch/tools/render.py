@@ -37,15 +37,16 @@ from mtgs_torch.train.trainer import Batch, TrainerConfig, render_view
 
 
 def write_png(path, img: np.ndarray) -> None:
-    """Write a uint8 [H, W] (grey), [H, W, 3] (RGB) or [H, W, 4] (RGBA)
-    image as an 8-bit PNG: one IDAT of unfiltered rows."""
+    """Write a uint8 [H, W] (grey), [H, W, 2] (grey + alpha), [H, W, 3]
+    (RGB) or [H, W, 4] (RGBA) image as an 8-bit PNG: one IDAT of unfiltered
+    rows."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise ValueError(f"write_png takes uint8 images, got {img.dtype}")
     if img.ndim == 2:
         img = img[..., None]
     h, w, c = img.shape
-    color_type = {1: 0, 3: 2, 4: 6}[c]
+    color_type = {1: 0, 2: 4, 3: 2, 4: 6}[c]
     rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], axis=1)
 
     def chunk(tag: bytes, data: bytes) -> bytes:

@@ -12,11 +12,14 @@ Usage:
     python -m mtgs_torch.tools.train_scene --data /path/road_block --out runs/x \\
         [--method mtgs] [--steps 30001] [--travels 0 1 2] [--eval-travels 3] \\
         [--device cpu]
+    python -m mtgs_torch.tools.train_scene --data-config road_block.yaml --out runs/x
 
-`--resume` restores the newest `step-*` checkpoint in --out (padded to its
-node capacities first; a final checkpoint without optimizer state restarts
-Adam). The JAX tool's `--data-config` (the reference's road-block YAML)
-waits for the port of `preprocess/` (ROADMAP.md §1 item 7).
+`--data-config` takes a RoadBlockConfig .yaml/.yml/.py (the reference's
+data-config layer, `preprocess/roadblock_config.py`): its `scene_dir`
+(data_root / road_block_name) is the road block unless `--data` is given
+too. `--resume` restores the newest `step-*` checkpoint in --out (padded to
+its node capacities first; a final checkpoint without optimizer state
+restarts Adam).
 """
 
 from __future__ import annotations
@@ -171,7 +174,11 @@ def eval_setup(run_dir, *, data=None, step=None, cameras=None, device="cuda"):
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--data", required=True, help="road block folder")
+    ap.add_argument("--data", default=None, help="road block folder (or use --data-config)")
+    ap.add_argument("--data-config", default=None,
+                    help="RoadBlockConfig .yaml/.yml/.py (the reference's data-config layer, "
+                         "nuplan_scripts/utils/config.py:38-108): supplies the road block "
+                         "folder when --data is not given")
     ap.add_argument("--out", required=True)
     ap.add_argument("--method", default="mtgs")
     ap.add_argument("--steps", type=int, default=30001)
@@ -189,7 +196,14 @@ def parse_args(argv=None):
                     help="multi-resolution ladder: equal step spans per scale, e.g. 0.25 0.5 1.0")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (cpu only when asked for)")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.data_config:
+        from mtgs_torch.preprocess.roadblock_config import load_road_block_config
+
+        args.data = args.data or str(load_road_block_config(args.data_config).scene_dir)
+    if not args.data:
+        ap.error("--data or --data-config required")
+    return args
 
 
 def main(argv=None) -> int:

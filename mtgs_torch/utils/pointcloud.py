@@ -4,7 +4,9 @@ parser `mtgs/utils/nuplan_pointcloud.py` in OpenDriveLab/MTGS).
 
 Supports ASCII and binary (uncompressed) PCD v0.7, plus .npy/.npz with
 'xyz'/'rgb' arrays. `statistical_outlier_removal` and `voxel_downsample`
-mirror the open3d calls at `mtgs/dataset/nuplan_dataparser.py:471-494`.
+mirror the open3d calls at `mtgs/dataset/nuplan_dataparser.py:471-494`;
+`voxel_downsample_tensor` is the voxel average on tensors, on their device
+(the data factory's point-cloud stacking runs it on the card).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 
 def _parse_pcd_header(data: bytes):
@@ -146,3 +149,33 @@ def voxel_downsample(
         out_rgb /= counts[:, None]
         out_rgb = out_rgb.astype(np.float32)
     return out_xyz.astype(np.float32), out_rgb
+
+
+def voxel_downsample_tensor(
+    xyz: torch.Tensor, rgb: Optional[torch.Tensor], voxel: float
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """`voxel_downsample` on tensors, on their device: the same voxel keys
+    (`floor(xyz / voxel)` in xyz's own dtype, as numpy 2 promotes a float32
+    array by a Python float), the same float64 sums and means, and the rows
+    in the order of the packed key, as `np.unique` sorts it. On a card the
+    sums are atomic adds, so their order, and at most the last bit of a
+    float32 output, may change from run to run."""
+    if xyz.shape[0] == 0:
+        return xyz, rgb
+    # a divisor on the device: CUDA divides by a Python scalar as a product
+    # with its reciprocal, which moves keys at voxel edges
+    keys = torch.floor(xyz / torch.tensor(voxel, dtype=xyz.dtype, device=xyz.device))
+    keys = keys.to(torch.int64)
+    keys = keys - keys.min(dim=0).values
+    dims = keys.max(dim=0).values + 1
+    flat = (keys[:, 0] * dims[1] + keys[:, 1]) * dims[2] + keys[:, 2]
+    uniq, inv, counts = torch.unique(flat, sorted=True, return_inverse=True,
+                                     return_counts=True)
+    counts = counts.to(torch.float64)[:, None]
+
+    def mean(values: torch.Tensor) -> torch.Tensor:
+        sums = torch.zeros((len(uniq), values.shape[1]), dtype=torch.float64,
+                           device=values.device)
+        return sums.index_add_(0, inv, values.to(torch.float64)) / counts
+
+    return mean(xyz).to(torch.float32), None if rgb is None else mean(rgb).to(torch.float32)

@@ -536,6 +536,55 @@ def write_runtime_files(root: Path, block: Block, width: int = WIDTH, height: in
         pickle.dump(vsd, fh)
 
 
+def write_stage_inputs(root: Path) -> dict:
+    """The data factory's inputs for stages 5-8 (`preprocess/pipeline.py`)
+    from a written block: each camera JPEG undistorted by the port's
+    `undistort_image` ("optimal" K) to `images/undistorted/<name>.jpg`, its
+    semantic mask (nearest) to `masks/undistorted/<stem>_cityscape.png`,
+    and the raw-stage `video_scene_dict` the stages read (nuPlan's raw
+    schema: `ego2global_translation` / `_rotation` (wxyz), `can_bus`,
+    `lidar_path` relative to the block, the undistorted intrinsics), which
+    is returned for the caller to save as the "raw" stage. Uses the port's
+    decoders and encoders, not PIL."""
+    from mtgs_torch.data.dataset import undistort_image
+    from mtgs_torch.data.image_io import read_image, write_jpeg
+    from mtgs_torch.tools.render import write_png
+
+    root = Path(root)
+    with open(root / "video_scene_dict.pkl", "rb") as fh:
+        vsd = pickle.load(fh)
+    (root / "images" / "undistorted").mkdir(parents=True, exist_ok=True)
+    (root / "masks" / "undistorted").mkdir(parents=True, exist_ok=True)
+    raw = {}
+    for token, info in vsd.items():
+        frames = []
+        for fr in info["frame_infos"]:
+            e = np.asarray(fr["ego2global"], np.float64)
+            q = _quat_wxyz(e[:3, :3])
+            cams = {}
+            for cam, ci in fr["cams"].items():
+                img = read_image(root / "raw_images" / ci["data_path"])
+                und, K, _ = undistort_image(img, ci["cam_intrinsic"], ci["distortion"])
+                name = Path(ci["data_path"]).name
+                write_jpeg(root / "images" / "undistorted" / name,
+                           np.clip(np.round(und), 0, 255).astype(np.uint8))
+                mask = read_image(root / "semantic_masks" / ci["data_path"].replace(".jpg", ".png"))
+                mask_u, _, _ = undistort_image(mask, ci["cam_intrinsic"], ci["distortion"],
+                                               nearest=True)
+                write_png(root / "masks" / "undistorted" / (Path(name).stem + "_cityscape.png"),
+                          mask_u.astype(np.uint8))
+                cams[cam] = dict(ci, cam_intrinsic=K, distortion=np.zeros(5))
+            frames.append(dict(
+                token=fr["token"], frame_idx=fr["frame_idx"], timestamp=fr["timestamp"],
+                lidar_path="raw_lidars/" + fr["lidar_path"],
+                ego2global_translation=e[:3, 3].tolist(), ego2global_rotation=q,
+                can_bus=np.concatenate([e[:3, 3], q, np.zeros(11)]),
+                cams=cams, gt_boxes=fr["gt_boxes"], gt_names=fr["gt_names"],
+                track_tokens=fr["track_tokens"]))
+        raw[token] = dict(video_token=token, trajectory=info["trajectory"], frame_infos=frames)
+    return raw
+
+
 def materialize(dest: Path) -> Path:
     """The full road block at `dest`: the committed images copied in, the
     rest written from the seed. Needs no imaging package."""

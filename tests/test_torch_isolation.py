@@ -1,4 +1,4 @@
-"""mtgs_torch stands alone: it imports neither JAX, flax, mtgs_tpu nor PIL,
+"""mtgs_torch stands alone: it imports neither JAX, flax, mtgs_tpu, PIL nor PyYAML,
 builds its image decoders from its own source, and its entry points never
 fall back to the CPU on their own."""
 
@@ -28,7 +28,7 @@ from mtgs_torch.train import trainer
 from mtgs_torch.train.optim import OptimConfig, default_groups
 
 PKG = Path(mtgs_torch.__file__).parent
-FORBIDDEN = ("jax", "flax", "mtgs_tpu", "PIL")
+FORBIDDEN = ("jax", "flax", "mtgs_tpu", "PIL", "yaml")
 
 
 def all_modules():
@@ -46,6 +46,10 @@ def test_importing_the_port_loads_no_jax():
             "mtgs_torch.tools.train_scene"} <= set(mods)
     assert {"mtgs_torch.viewer.server", "mtgs_torch.utils.observability",
             "mtgs_torch.tools.bench_train", "mtgs_torch.tools.profile_raster"} <= set(mods)
+    assert {f"mtgs_torch.preprocess.{m}" for m in (
+        "video_scene", "roadblock_config", "stack_point_cloud", "lidar_registration", "colmap",
+        "video_split", "dense_depth", "semantic_masks", "pipeline", "export_videos")} | {
+        "mtgs_torch.tools.preview"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -60,8 +64,8 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_no_source_imports_jax_or_the_jax_package():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|mtgs_tpu|PIL)\b|import_module\(\s*['\"]"
-                         r"(jax|flax|mtgs_tpu|PIL)")
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|mtgs_tpu|PIL|yaml)\b|import_module\("
+                         r"\s*['\"](jax|flax|mtgs_tpu|PIL|yaml)")
     files = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh", ".cc")]
     assert len(files) > 20
     for p in files:

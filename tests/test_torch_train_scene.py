@@ -202,6 +202,30 @@ def test_main_trains_resumes_and_reloads(block, tmp_path, capsys, small_isect_bu
     assert not torch.equal(params3.background.means, params.background.means)
 
 
+def test_main_trains_from_a_data_config(block, tmp_path, small_isect_buffer):
+    """`--data-config` names the road block through a RoadBlockConfig (a
+    YAML written by `save_yaml`, read back with the port's own reader; JAX's
+    loader reads the same file to the same folder); `--data` wins over it."""
+    from mtgs_tpu.preprocess import roadblock_config as jrb
+    from mtgs_torch.preprocess.roadblock_config import RoadBlockConfig, save_yaml
+
+    cfg = tmp_path / "road_block.yaml"
+    save_yaml(RoadBlockConfig(road_block_name=block.name, data_root=str(block.parent),
+                              road_block=(-10.0, -20.0, 120.0, 20.0)), cfg)
+    assert jrb.load_road_block_config(cfg).scene_dir == block
+    other = tmp_path / "elsewhere"
+    assert train_scene.parse_args(["--data-config", str(cfg), "--out", "x"]).data == str(block)
+    assert train_scene.parse_args(["--data", str(other), "--data-config", str(cfg),
+                                   "--out", "x"]).data == str(other)
+    out = tmp_path / "run"
+    assert train_scene.main(["--data-config", str(cfg), "--out", str(out), "--steps", "1",
+                             *RUN]) == 0
+    rc = json.loads((out / "run_config.json").read_text())
+    assert rc["data"] == str(block.absolute()) and rc["steps"] == 1
+    result = json.loads((out / "eval_result.json").read_text())
+    assert result["num_images"] == 2 and np.isfinite(result["psnr"])
+
+
 def test_viewer_serves_a_trained_run(block, tmp_path, monkeypatch, small_isect_buffer):
     """`python -m mtgs_torch.viewer.server --run DIR` on a 1-step run: the
     scene eval_setup reloads, every traversal with its first frame, the
@@ -248,8 +272,8 @@ def test_main_raises_without_a_card(block, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         train_scene.main(["--data", str(block), "--out", str(tmp_path / "x"), "--steps", "1"])
     assert not (tmp_path / "x").exists()
-    with pytest.raises(SystemExit):  # --data-config is not ported
-        train_scene.parse_args(["--data-config", "rb.yaml", "--out", str(tmp_path)])
+    with pytest.raises(SystemExit):  # neither --data nor --data-config
+        train_scene.parse_args(["--out", str(tmp_path)])
 
 
 def test_render_interpolated_frames_and_poses_match_jax(block, tmp_path, monkeypatch):
