@@ -20,7 +20,9 @@ metric writers, the trace and the two bench tools
 (data parallel, tile-sharded rasterization, a 2D mesh), and the data
 factory (`preprocess/`: point-cloud stacking on the card, stages 5-8 of the
 pipeline on the committed road block, `train_scene --data-config`, the
-preview page and mosaics); and holds
+preview page and mosaics), and the last six tools (`tools/validate_fused.py`,
+`onchip_smoke.py`, `grow_demo.py`, `scaling_bench.py`, `microbench_ops.py`,
+`benchmark_farm.py`); and holds
 the seven hand-written CUDA kernels (`csrc/expand_fused.cu`,
 `csrc/blend_forward.cu`, `csrc/blend_backward.cu`, `csrc/segment_sum.cu`,
 `csrc/expand_pairs.cu`, the two of `csrc/transpose.cu`) against their
@@ -234,6 +236,26 @@ plain PyTorch versions. Phases, each of which raises on failure:
      ICP; (d) `preview.build_preview_html` of the final stage and
      `export_traversal_videos` of every traversal (the camera tile against
      `resize_u8(..., bicubic=True)` of the decoded JPEG);
+  18. tools (after phase 16): the last six tools' `main`s on the card, each
+     with the launch counters zeroed just before and read just after:
+     `validate_fused` at its defaults (exit 0: fused against classic on
+     200k gaussians at 512x384; kernels 1-4 on the fused run, the classic
+     path's six on the classic run); `onchip_smoke` at its defaults (exit 0,
+     the eval, interpolated frames and viewer flags true; the fused forward
+     pair once a ground-truth view, step, eval view, frame and viewer
+     request); `grow_demo` at 960x540 from 100k seeds for GROW_STEPS steps
+     (its 2000-step default cut in depth; exit 0, a growth event, no
+     overflow, every step's forward and backward on the fused or, past the
+     gate, the classic path, the split replayed from the trainer's growth
+     events); `scaling_bench` over worlds 1 and 2 at 200k gaussians in wall
+     mode and `--cost` (gloo ranks time-sliced on cuda:0; every rank's fused
+     four once a step, no render truncated, world 2's fullest band between
+     half and all of the image's pairs); `microbench_ops` at JAX's sizes (kernels 6 and 7 once a
+     call); `benchmark_farm` with two tasks of FARM_STEPS steps on a copy of
+     the committed road block (`--slots 2`, the children on the card; each
+     child's log shows the fused four once a step and the forward pair once
+     an eval view), then `--resume` (both `cached`, no child started, the
+     same tables but for the status column);
   5. kernels: each kernel against its plain version, the fused forward two
      at the shapes of one serving view, the backward two at those of one
      training step (both blends also on the faint scene of one more
@@ -267,6 +289,7 @@ import argparse
 import collections
 import contextlib
 import copy
+import csv
 import ctypes
 import dataclasses
 import hashlib
@@ -319,7 +342,10 @@ from mtgs_torch.raster.chunk_math import (
     ALPHA_MAX, ALPHA_MIN, LOG_T_EPS, NUM_GEOM, conic_coefficients, pixel_features, round8,
 )
 from mtgs_torch.raster.expand_fused import fused_fits
-from mtgs_torch.tools import bench_train, campaign, profile_raster, train_scene
+from mtgs_torch.tools import (
+    bench_train, benchmark_farm, campaign, grow_demo, microbench_ops, onchip_smoke,
+    profile_raster, scaling_bench, train_scene, validate_fused,
+)
 from mtgs_torch.tools import export as gaussian_export
 from mtgs_torch.tools import render as render_tool
 from mtgs_torch.train import checkpoint
@@ -4639,6 +4665,276 @@ def phase_preprocess(card: str, dev, block: Path, untrained_psnr: float):
     return res, launches
 
 
+# ----------------------------------------------------------------- tools
+
+ONCHIP_TRAIN_STEPS = 30      # phase 18: onchip_smoke's default --steps
+ONCHIP_EVAL_VIEWS, ONCHIP_VIEWER = 4, 3
+GT_VIEWS = 6                 # grow_demo's and onchip_smoke's scenes: 2 traversals x 3 frames
+GROW_SIZE, GROW_N_BG = (960, 540), 100_000
+GROW_STEPS = 400             # grow_demo's --max-steps (its default 2000, cut in depth)
+FARM_STEPS = 20              # the farm: train_scene steps a task
+FARM_TASKS = ("block_a", "block_b")
+
+
+def tool_run(main, argv, what: str):
+    """`main(argv)` in-process, its stdout kept, with the launch counters
+    zeroed just before and read just after. Returns (exit code, stdout,
+    launches, seconds)."""
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    # this tool's run: kernel launches counted from here ...
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda_build.LAUNCHES)
+    # ... to here
+    printed = buf.getvalue()
+    for line in printed.splitlines():
+        log(f"#   {what}: {line}")
+    return rc, printed, launches, seconds
+
+
+def last_json(printed: str) -> dict:
+    return json.loads(printed.strip().splitlines()[-1])
+
+
+def validate_recorders(rec: dict):
+    """A wrapper of `validate_fused.run` recording the launches of each path."""
+    def wrap(fn):
+        def call(scene, viewmat, K, gw, cfg):
+            before = dict(cuda_build.LAUNCHES)
+            out = fn(scene, viewmat, K, gw, cfg)
+            torch.cuda.synchronize()
+            rec["fused" if cfg.fused else "classic"] = launch_delta(before)
+            return out
+        return call
+    return wrap
+
+
+def tools_validate(total) -> dict:
+    """validate_fused at its defaults: exit 0, VALIDATE PASS; kernels 1-4
+    on the fused run (a forward, then a forward and backward), the classic
+    path's six on the classic run."""
+    rec = {}
+    with wrapped(validate_fused, "run", validate_recorders(rec)):
+        rc, printed, launches, seconds = tool_run(validate_fused.main, [], "validate_fused")
+    require(rc == 0 and "VALIDATE PASS" in printed, f"validate_fused: rc {rc}\n{printed}")
+    require_launches(rec["fused"], dict(expand_fused=2, blend_forward=2, blend_backward=1,
+                                        dense_segment_sum=1), "validate_fused, fused path")
+    require_launches(rec["classic"], dict(expand_pairs=2, rows_to_attr_major=2,
+                                          blend_forward=2, blend_backward=1,
+                                          dense_segment_sum=1, attr_major_to_rows=1),
+                     "validate_fused, classic path")
+    total.update(launches)
+    return dict(printed=printed.splitlines(), launches=rec, seconds=seconds)
+
+
+def tools_onchip(total, work: Path) -> dict:
+    """onchip_smoke at its defaults: exit 0, its three flags true; the fused
+    forward pair once for every ground-truth view, training step, eval view,
+    interpolated frame and viewer request, the backward pair once a step."""
+    out = work / "onchip"
+    rc, printed, launches, seconds = tool_run(onchip_smoke.main, ["--out", str(out)],
+                                              "onchip_smoke")
+    res = last_json(printed)
+    require(rc == 0 and res["eval_ok"] and res["interp_ok"] and res["viewer_ok"]
+            and res["backend"] == "cuda", f"onchip_smoke: rc {rc}, {res}")
+    frames = len(list((out / "interp").glob("frame_*.png")))
+    fwd = GT_VIEWS + ONCHIP_TRAIN_STEPS + ONCHIP_EVAL_VIEWS + frames + ONCHIP_VIEWER
+    require_launches(launches, dict(expand_fused=fwd, blend_forward=fwd,
+                                    blend_backward=ONCHIP_TRAIN_STEPS,
+                                    dense_segment_sum=ONCHIP_TRAIN_STEPS), "onchip_smoke")
+    total.update(launches)
+    return dict(res, frames=frames, launches=launches, seconds=seconds)
+
+
+def grow_fused_steps(trainer, steps: int, seed_capacity: int, ntl: int) -> int:
+    """The training steps of a grow_demo run that `fused_fits` sends down
+    the fused path, replayed from the trainer's growth events: an event at
+    step s sets the buffer (or the capacity) of steps s + 1 on."""
+    events = trainer.growth_events
+    isect = next((e["old"] for e in events if e["node"] == "max_intersections"),
+                 trainer.cfg.max_intersections)
+    cap, fused = seed_capacity, 0
+    for step in range(1, steps + 1):
+        fused += fused_fits(isect, ntl, cap)
+        for e in events:
+            if e["step"] == step:
+                if e["node"] == "max_intersections":
+                    isect = e["new"]
+                else:
+                    cap = e["new"]
+    return fused
+
+
+def tools_grow(total) -> dict:
+    """grow_demo at 960x540 from 100k seeds for GROW_STEPS steps: exit 0, a
+    growth event, no overflow; every step one forward and one backward, on
+    the path `fused_fits` picks at that step's buffer and capacity (from
+    the trainer's growth events), the ground truth's views on the path it
+    picks at their buffer (classic at 960x540's 6 << 20)."""
+    (w, h), n_bg = GROW_SIZE, GROW_N_BG
+    argv = ["--width", str(w), "--height", str(h), "--n-bg", str(n_bg),
+            "--max-steps", str(GROW_STEPS)]
+    rec = {}
+
+    def record(fn):
+        def call(self, *a, **kw):
+            rec["trainer"] = self
+            return fn(self, *a, **kw)
+        return call
+
+    with wrapped(Trainer, "train", record):
+        rc, printed, launches, seconds = tool_run(grow_demo.main, argv, "grow_demo")
+    res = last_json(printed)
+    require(rc == 0 and res["n_growth_events"] >= 1 and res["overflow"] == 0
+            and res["optimizer_state_consistent"], f"grow_demo: rc {rc}, {res}")
+    n, ntl = res["steps"], -(-w // 32) * -(-h // 32)
+    gt_fused = fused_fits(bench_train.gt_capacity(w, h), ntl, n_bg)
+    gt_f, gt_c = (GT_VIEWS, 0) if gt_fused else (0, GT_VIEWS)
+    events = rec["trainer"].growth_events
+    fused = grow_fused_steps(rec["trainer"], n, res["seed_capacity"], ntl)
+    classic = n - fused
+    require(fused >= 1, f"grow_demo: no fused step; growth events {events}")
+    require_launches(launches, dict(expand_fused=gt_f + fused, expand_pairs=gt_c + classic,
+                                    rows_to_attr_major=gt_c + classic,
+                                    attr_major_to_rows=classic, blend_forward=GT_VIEWS + n,
+                                    blend_backward=n, dense_segment_sum=n),
+                     f"grow_demo: {n} steps, {fused} fused by its growth events")
+    total.update(launches)
+    return dict(res, fused_steps=fused, classic_steps=classic, growth_events=events,
+                launches=launches, seconds=seconds)
+
+
+def tools_scaling(total) -> dict:
+    """scaling_bench over worlds 1 and 2 at 200k gaussians, gloo on cuda:0,
+    in wall mode and with --cost: world 1 in this process, world 2 as two
+    ranks; every rank's fused four once a step (warm-up included), no
+    render truncated, and world 2's fullest band between half and all of
+    the image's pairs."""
+    res = {}
+    # steps a rank takes: a warm-up and --iters' 10 timed steps, or a
+    # warm-up and the traced step
+    for label, extra, steps in (("wall", [], 11), ("cost", ["--cost"], 2)):
+        rc, printed, launches, seconds = tool_run(
+            scaling_bench.main, ["--devices", "1", "2", *extra], f"scaling_bench {label}")
+        r = last_json(printed)
+        require(rc == 0 and r["note"].startswith("ranks time-sliced on one card")
+                and r["truncated"] == {"1": False, "2": False},
+                f"scaling_bench {label}: rc {rc}, {r}")
+        want = dict.fromkeys(FUSED_KERNELS, steps)
+        require_launches(launches, want, f"scaling_bench {label}, world 1")
+        for world, ranks in r["launches"].items():
+            for rank, got in enumerate(ranks):
+                require(got == want, f"scaling_bench {label}, world {world} rank {rank}: "
+                                     f"launches {got}, expected {want}")
+                total.update(got)
+        image, band = r["fullest_band_pairs"]["1"], r["fullest_band_pairs"]["2"]
+        require(0 < image / 2 <= band <= image,
+                f"scaling_bench {label}: fullest band {band} of the image's {image} pairs")
+        res[label] = dict(r, seconds=seconds)
+    return res
+
+
+def tools_microbench(total) -> dict:
+    """microbench_ops at JAX's sizes: kernels 6 and 7 launched once a timed
+    call and once in warm-up, nothing else."""
+    rc, printed, launches, seconds = tool_run(microbench_ops.main, [], "microbench_ops")
+    res = last_json(printed)
+    require(rc == 0 and all(np.isfinite(v) and v > 0 for v in res["rows"].values()),
+            f"microbench_ops: rc {rc}, {res}")
+    n = 1 + microbench_ops.ITERS
+    require_launches(launches, dict(rows_to_attr_major=n, attr_major_to_rows=n),
+                     "microbench_ops")
+    total.update(launches)
+    return dict(res, launches=launches, seconds=seconds)
+
+
+CHILD_LAUNCHES = "[train_scene] kernel launches "
+
+
+def tools_farm(total, work: Path) -> dict:
+    """benchmark_farm: two tasks on a copy of the committed road block
+    (FARM_STEPS steps each, --slots 2, both children on the card), then
+    --resume: every child exits 0 with a finite eval_result.json and its
+    log shows the fused four once a step and the forward pair once an eval
+    view; the resumed run returns `cached` for both, starts no child and
+    writes the same tables but for the status column."""
+    block = nuplan_fixture().materialize(work / "road_block")
+    out = work / "farm"
+    tasks = [dict(name=n, data=str(block), travels=[0, 1], eval_travels=[2], steps=FARM_STEPS)
+             for n in FARM_TASKS]
+    (work / "tasks.json").write_text(json.dumps(tasks))
+    argv = ["--tasks", str(work / "tasks.json"), "--out", str(out), "--slots", "2"]
+    rc, printed, launches, seconds = tool_run(benchmark_farm.main, argv, "benchmark_farm")
+    require(rc == 0 and f"{len(tasks)}/{len(tasks)} scenes complete" in printed,
+            f"benchmark_farm: rc {rc}\n{printed}")
+    require_launches(launches, {}, "benchmark_farm's own process")
+    children = {}
+    for n in FARM_TASKS:
+        logged = (out / n / "train.log").read_text()
+        line = [l for l in logged.splitlines() if l.startswith(CHILD_LAUNCHES)]
+        require(line, f"farm task {n}: no launch line in its log:\n{logged[-2000:]}")
+        got = json.loads(line[-1][len(CHILD_LAUNCHES):])
+        result = json.loads((out / n / "eval_result.json").read_text())
+        views = result["num_images"]
+        require(np.isfinite(result["psnr"]) and views > 0, f"farm task {n}: {result}")
+        require_launches(got, dict(expand_fused=FARM_STEPS + views,
+                                   blend_forward=FARM_STEPS + views,
+                                   blend_backward=FARM_STEPS, dense_segment_sum=FARM_STEPS),
+                         f"farm task {n}: {FARM_STEPS} steps and {views} eval views")
+        total.update(got)
+        children[n] = dict(launches=got, psnr=result["psnr"], views=views,
+                           log_mtime=(out / n / "train.log").stat().st_mtime_ns)
+    first = [(out / f).read_text() for f in ("results_summary.csv", "paste_table.tsv")]
+    rc2, printed2, launches2, seconds2 = tool_run(benchmark_farm.main, argv + ["--resume"],
+                                                  "benchmark_farm --resume")
+    again = [(out / f).read_text() for f in ("results_summary.csv", "paste_table.tsv")]
+    require(rc2 == 0 and all((out / n / "train.log").stat().st_mtime_ns
+                             == children[n]["log_mtime"] for n in FARM_TASKS),
+            "benchmark_farm --resume started a child")
+    rows = list(csv.DictReader(io.StringIO(again[0])))
+    require([r["status"] for r in rows] == ["cached"] * len(tasks),
+            f"benchmark_farm --resume: statuses {[r['status'] for r in rows]}")
+    require([t.replace("cached", "ok") for t in again] == first,
+            "benchmark_farm --resume: the tables differ beyond the status column")
+    log(f"# tools: farm tables\n{again[1]}")
+    return dict(children=children, seconds=seconds, resume_seconds=seconds2,
+                table=again[1].splitlines())
+
+
+def phase_tools(card: str):
+    """Phase 18: the last six tools, each `main` run in-process on the card
+    with the launch counters zeroed just before and read just after
+    (`tool_run`); the ranks' and the farm's children's launches read from
+    what they report. Returns (results, the launches of every run)."""
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    work = Path(tempfile.mkdtemp(prefix="tools_", dir=ROOT / "build"))
+    res = {}
+    try:
+        for name, run in (("validate_fused", lambda: tools_validate(total)),
+                          ("onchip_smoke", lambda: tools_onchip(total, work)),
+                          ("grow_demo", lambda: tools_grow(total)),
+                          ("scaling_bench", lambda: tools_scaling(total)),
+                          ("microbench_ops", lambda: tools_microbench(total)),
+                          ("benchmark_farm", lambda: tools_farm(total, work))):
+            t0 = time.perf_counter()
+            res[name] = run()
+            torch.cuda.empty_cache()
+            log(f"# tools ({card}): {name} took {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    total = {k: total[k] for k in KERNELS}
+    res["launches"] = total
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"# tools ({card}): phase 18 took {res['phase_s']:.1f} s; launches {total}")
+    return res, total
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4713,13 +5009,15 @@ def main(argv=None):
     obs_res, obs_launches = phase_observability(args, card, dev, state_sd, train_batches)
     torch.cuda.empty_cache()  # the ranks of phase 16 share the card
     parallel_res, parallel_launches = phase_parallel(args, card, state_sd, train_batches)
+    torch.cuda.empty_cache()
+    tools_res, tools_launches = phase_tools(card)
     by_path = dict(serving=main_res["launches"], training=train_res["launches"],
                    classic_renders=classic_launches, classic_step=classic_step_launches,
                    render_tool=render_res["launches"], growth=growth_launches,
                    campaign=campaign_launches, nuplan=nuplan_launches,
                    eval_export=eval_export_launches, viewer=viewer_launches,
                    observability=obs_launches, parallel=parallel_launches,
-                   data_config=preprocess_launches, **deform_launches)
+                   data_config=preprocess_launches, tools=tools_launches, **deform_launches)
     serving_captured = {}  # the kernel wrappers' arguments in one serving view
     with capturing(serving_captured), torch.no_grad():
         render_view(params, aux, cfg, batch, 10**9, device=dev)
@@ -4754,6 +5052,7 @@ def main(argv=None):
                        growth=growth_res, campaign=campaign_res, nuplan=nuplan_res,
                        eval_export=eval_export_res, deformables=deform_res, viewer=viewer_res,
                        observability=obs_res, parallel=parallel_res, preprocess=preprocess_res,
+                       tools=tools_res,
                        kernels=kernels, ab=ab,
                        profile=prof,
                        seconds=time.perf_counter() - t_start)

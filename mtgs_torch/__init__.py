@@ -17,9 +17,11 @@ has an obvious counterpart:
                traces (observability)
     eval/      metric suite + the per-traversal eval pipeline
     tools/     rendering, the training campaign, per-road-block training
-               (also from a road-block data config), gaussian export, the
-               train-step bench, the rasterizer stage profile and the
-               traversal preview
+               (also from a road-block data config) and the multi-block
+               farm, gaussian export, the train-step bench, the rasterizer
+               stage profile, the traversal preview, the fused-against-
+               classic validation, the eval/render/viewer smoke, the growth
+               demo, the sharded scaling bench and the microbench
     viewer/    the HTTP viewer of a trained run
     parallel/  meshes of ranks over torch.distributed, collectives, camera
                data parallelism and the tile-sharded rasterizer

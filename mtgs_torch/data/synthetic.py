@@ -170,6 +170,7 @@ def make_synthetic_scene(
     ground_scale: float = 0.4,
     color_noise: float = 0.0,
     gt_max_intersections: int = 1 << 17,
+    truncate_gt: bool = False,
     device="cuda",
 ) -> SyntheticScene:
     """Draw the ground truth from `seed` and render every (traversal,
@@ -178,7 +179,9 @@ def make_synthetic_scene(
     `n_seed` caps the seed-point subsample (default 1200); `ground_scale`
     and `color_noise` set the ground truth's texture frequency. The renders
     are RGB+ED at `gt_max_intersections` with no autograd; a view whose
-    pairs exceed that capacity raises (it would be truncated)."""
+    pairs exceed that capacity raises (it would be truncated), unless
+    `truncate_gt`: then it keeps the truncated render, its farthest pairs
+    dropped, as JAX's `make_synthetic_scene` does."""
     dev = resolve_device(device)
     bg = _gt_gaussians(np.random.default_rng([seed, 0]), n_bg, extent, ground_scale,
                        color_noise)
@@ -242,7 +245,7 @@ def make_synthetic_scene(
                 r, a, info = rasterize(means, quats, scales, opacs, cols,
                                        camera_to_gsplat_viewmat(t(c2w)), K_t, cfg)
                 n_isect = int(info["n_intersections"])
-                if n_isect > gt_max_intersections:
+                if n_isect > gt_max_intersections and not truncate_gt:
                     raise ValueError(
                         f"ground-truth view (travel {tr}, frame {f}) has {n_isect} "
                         f"intersections > gt_max_intersections {gt_max_intersections}: "

@@ -304,6 +304,10 @@ def main(argv=None) -> int:
                for i, r in enumerate(eval_scene.records))
     result = evaluate_scene(trainer.state.params, trainer.aux, cfg, batches,
                             output_path=str(out / "eval_result.json"), device=dev)
+    # this process's kernel launches, training and eval: what a farm's log shows
+    from mtgs_torch.raster.cuda_build import LAUNCHES
+
+    print(f"[train_scene] kernel launches {json.dumps(LAUNCHES)}", flush=True)
     print(json.dumps({k: round(v, 4) for k, v in result.items()}, indent=2), flush=True)
     return 0
 

@@ -50,6 +50,9 @@ def test_importing_the_port_loads_no_jax():
         "video_scene", "roadblock_config", "stack_point_cloud", "lidar_registration", "colmap",
         "video_split", "dense_depth", "semantic_masks", "pipeline", "export_videos")} | {
         "mtgs_torch.tools.preview"} <= set(mods)
+    assert {f"mtgs_torch.tools.{m}" for m in (
+        "benchmark_farm", "validate_fused", "onchip_smoke", "grow_demo", "scaling_bench",
+        "microbench_ops")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

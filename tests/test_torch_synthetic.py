@@ -165,3 +165,24 @@ def test_batch_iterator_order_matches_jax(shared):
         assert np.array_equal(a.image.numpy(), np.asarray(b.image))
         assert np.array_equal(a.lidar_depth.numpy(), np.asarray(b.lidar_depth))
         assert a.timestamp == float(b.timestamp)
+
+
+def test_truncated_ground_truth_matches_jax(monkeypatch):
+    """A ground truth whose pairs pass gt_max_intersections raises by
+    default; with truncate_gt the port keeps the truncated render (the
+    farthest pairs dropped), as JAX's `make_synthetic_scene` always does:
+    the same images as JAX's on shared ground truth (2e-3, the golden
+    render tolerance), and not the untruncated ones."""
+    n = 6000
+    gt = ts._gt_gaussians(np.random.default_rng([0, 0]), n, 12.0, 0.4, 0.0)
+    monkeypatch.setattr(js, "_gt_gaussians", lambda key, *a: tuple(jnp.asarray(x) for x in gt))
+    monkeypatch.setattr(ts, "_gt_gaussians", lambda rng, *a: gt)
+    kw = dict(seed=0, width=64, height=64, n_travels=1, n_frames=2, n_bg=n, n_instance=0,
+              gt_max_intersections=1024)
+    with pytest.raises(ValueError, match="would be truncated"):
+        ts.make_synthetic_scene(device="cpu", **kw)
+    port = ts.make_synthetic_scene(device="cpu", truncate_gt=True, **kw)
+    ref = js.make_synthetic_scene(backend="xla", **kw)
+    full = ts.make_synthetic_scene(device="cpu", **dict(kw, gt_max_intersections=1 << 14))
+    np.testing.assert_allclose(port.images, ref.images, rtol=0, atol=2e-3)
+    assert np.abs(port.images - full.images).mean() > 0.05
