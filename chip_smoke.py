@@ -33,6 +33,11 @@ plain PyTorch versions. Phases, each of which raises on failure:
      image decoders (`csrc/image_decode.cc`), the JPEG encoder
      (`csrc/image_encode.cc`) and the ICP core (`csrc/icp_core.cc`) with
      the host compiler, in parallel;
+  2b. prng: `core.prng` (the port's copy of `jax.random`, which draws
+     the synthetic scenes, the refine noise and the initial weights) on
+     the card against the CPU for four seeds, a chain of three splits and
+     a fold_in: keys, bits, uniform, randint and bernoulli bit for bit,
+     normal within 2 ulp, some of its draws from erf_inv's tail branch;
   3. goldens: the kernel path's rasterize on the four gsplat-math goldens
      in tests/goldens/ (render 2e-3, alpha 1e-3);
   4. main path: the scene in the JAX state-dict layout, carried across
@@ -247,7 +252,11 @@ plain PyTorch versions. Phases, each of which raises on failure:
      (its 2000-step default cut in depth; exit 0, a growth event, no
      overflow, every step's forward and backward on the fused or, past the
      gate, the classic path, the split replayed from the trainer's growth
-     events); `scaling_bench` over worlds 1 and 2 at 200k gaussians in wall
+     events; every refine's alive count printed beside JAX's TPU log's),
+     and again at the size of the CPU comparison in
+     tests/fixtures/grow_demo_jax.json (JAX's run on the CPU): every
+     refine's capacity, buffer and overflow equal to JAX's and its alive
+     count within 1%; `scaling_bench` over worlds 1 and 2 at 200k gaussians in wall
      mode and `--cost` (gloo ranks time-sliced on cuda:0; every rank's fused
      four once a step, no render truncated, world 2's fullest band between
      half and all of the image's pairs); `microbench_ops` at JAX's sizes (kernels 6 and 7 once a
@@ -298,7 +307,9 @@ import importlib.util
 import io
 import itertools
 import json
+import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -315,6 +326,7 @@ import numpy as np
 import torch
 
 from mtgs_torch import configs
+from mtgs_torch.core import prng
 from mtgs_torch.data import image_io, loader as data_loader
 from mtgs_torch.data.dataset import SampleConfig, load_sample, undistort_image
 from mtgs_torch.data.nuplan import parse_scene
@@ -415,7 +427,7 @@ NUPLAN_MEANS_TOL = 1 / 255  # the JPEGs' 1/32-scale block means against the mani
 INTERP_HZ = 6.0          # render_interpolated: 4 frames at 2 Hz become 10
 DEFORM_STEPS = 300       # phase 12: steps of each preset on phase 10's scene
 DEFORM_ENABLE = 150      # the deformation switch (the preset's absolute 3000, cut in depth)
-DEFORM_SEED = 12         # the deform MLP's generator
+DEFORM_SEED = 12         # the deform MLP's key
 EVAL_EXPORT_SEED = 13    # phase 13: the seeded LPIPS and DINOv2 weights
 EVAL_EXPORT_TOL = 1e-6   # phase 13: the other metrics with LPIPS and DINOv2 on, against off
 LPIPS_TOL = dict(rel=1e-4, abs=1e-6)    # phase 13: the card's LPIPS against the CPU's
@@ -898,6 +910,68 @@ def phase_build():
     secs = time.perf_counter() - t0
     log(f"# build: {', '.join(p.name for p in [*libs.values(), *host_libs])} in {secs:.1f} s")
     return secs
+
+
+PRNG_SEEDS = (0, 7, 2**31 - 1, 2**32 + 5)
+PRNG_NORMAL_ULPS = 2      # normal: XLA's erf_inv and log1p, elementwise in float32
+PRNG_TAIL = 3.0           # |normal| past it comes from erf_inv's tail branch (w >= 5)
+
+
+def prng_draws(key) -> dict:
+    """The streams of one key, as the port draws them: bits, the uniforms
+    of the synthetic scene's bounds, randint spans, bernoulli(0.5) and
+    normal at the shapes of tests/test_torch_prng.py."""
+    out = dict(key=key, bits=prng.random_bits(key, (1001, 3)),
+               bernoulli=prng.bernoulli(key, 0.5, (1001,)))
+    for lo, hi in ((0.0, 1.0), (-60.0, 60.0), (0.15, 0.9), (0.0, 2 * math.pi)):
+        out[f"uniform[{lo}, {hi})"] = prng.uniform(key, (1001, 3), lo, hi)
+    for lo, hi in ((0, 15), (0, 37), (0, 2**31 - 1)):
+        out[f"randint[{lo}, {hi})"] = prng.randint(key, (2001,), lo, hi)
+    for shape in ((), (7,), (1001, 3), (4, 5, 3)):
+        out[f"normal{shape}"] = prng.normal(key, shape)
+    return out
+
+
+def phase_prng(dev):
+    """`core.prng` on the card against the same streams on the CPU: every
+    seed's key, a chain of three splits (5, 16, 3 keys) and a fold_in(17)
+    of its end; keys, bits, uniform, randint and bernoulli bit for bit,
+    normal within PRNG_NORMAL_ULPS float32 ulps, erf_inv's tail branch
+    among its draws."""
+    t0 = time.perf_counter()
+    n_cases, worst, tail = 0, 0, 0
+    for seed in PRNG_SEEDS:
+        keys = {}
+        for d in ("cpu", dev):
+            k = prng.key(seed, device=d)
+            chain = [k]
+            for n, pick in ((5, 0), (16, 15), (3, 1)):
+                chain.append(prng.split(chain[-1], n)[pick])
+            chain.append(prng.fold_in(chain[-1], 17))
+            keys[str(d)] = chain
+        for k_cpu, k_dev in zip(keys["cpu"], keys[str(dev)]):
+            want, got = prng_draws(k_cpu), prng_draws(k_dev)
+            torch.cuda.synchronize()
+            for name, w in want.items():
+                g = got[name].cpu()
+                n_cases += 1
+                if name.startswith("normal"):
+                    ulps = (g.view(torch.int32).long() - w.view(torch.int32).long()).abs()
+                    err = int(ulps.max()) if ulps.numel() else 0
+                    worst = max(worst, err)
+                    tail += int((w.abs() > PRNG_TAIL).sum())
+                    require(err <= PRNG_NORMAL_ULPS,
+                            f"prng seed {seed} {name}: card {err} ulps from the CPU")
+                else:
+                    require(g.dtype == w.dtype and torch.equal(g, w),
+                            f"prng seed {seed} {name}: the card's draw is not the CPU's")
+    require(tail > 0, f"prng: no normal draw past {PRNG_TAIL} (erf_inv's tail branch)")
+    secs = time.perf_counter() - t0
+    log(f"# prng: {n_cases} streams of {len(PRNG_SEEDS)} seeds (keys, a split chain, "
+        f"fold_in) on the card: keys, bits, uniform, randint, bernoulli bit-equal to the "
+        f"CPU; normal within {worst} ulp (limit {PRNG_NORMAL_ULPS}), {tail} draws past "
+        f"{PRNG_TAIL}; {secs:.1f} s")
+    return dict(cases=n_cases, normal_max_ulps=worst, normal_tail_draws=tail, seconds=secs)
 
 
 def phase_goldens(dev):
@@ -2916,14 +2990,14 @@ def deformable_scene(scene, cargs, dev):
     """Phase 10's scene model (`build_scene_model`, with its 5k instance and
     100k skybox) with the rigid instance block made a deformable one, as the
     JAX package's test_train_e2e.py does: capacity 5,120, zero embeddings
-    [1, 16], the deform MLP from a seeded generator."""
+    [1, 16], the deform MLP from a key."""
     params, aux = build_scene_model(scene, with_instances=True, with_skybox=True,
                                     skybox_points=cargs.skybox_points, device=dev)
     inst = params.instances
     deform = DeformableParams(
         node=inst.node, quats=inst.quats, trans=inst.trans,
         embeddings=torch.zeros((inst.node.means.shape[0], 16), device=dev),
-        mlp=init_deform_mlp(generator=torch.Generator().manual_seed(DEFORM_SEED), device=dev))
+        mlp=init_deform_mlp(prng.key(DEFORM_SEED), device=dev))
     return (dataclasses.replace(params, instances=None, deformables=deform),
             dataclasses.replace(aux, instances=None, deformables=aux.instances))
 
@@ -4672,6 +4746,10 @@ ONCHIP_EVAL_VIEWS, ONCHIP_VIEWER = 4, 3
 GT_VIEWS = 6                 # grow_demo's and onchip_smoke's scenes: 2 traversals x 3 frames
 GROW_SIZE, GROW_N_BG = (960, 540), 100_000
 GROW_STEPS = 400             # grow_demo's --max-steps (its default 2000, cut in depth)
+GROW_TPU_LOG = ROOT / "results" / "onchip" / "20260821_060110" / "grow_demo.log"
+GROW_FIXTURE = ROOT / "tests" / "fixtures" / "grow_demo_jax.json"  # JAX's run on the CPU
+GROW_ALIVE_TOL = 0.01        # alive counts cross float thresholds (gradient > 1e-9, opacity)
+GROW_GT_ISECT = 1 << 17      # grow_demo's ground-truth buffer (make_synthetic_scene's default)
 FARM_STEPS = 20              # the farm: train_scene steps a task
 FARM_TASKS = ("block_a", "block_b")
 
@@ -4770,16 +4848,30 @@ def grow_fused_steps(trainer, steps: int, seed_capacity: int, ntl: int) -> int:
     return fused
 
 
-def tools_grow(total) -> dict:
-    """grow_demo at 960x540 from 100k seeds for GROW_STEPS steps: exit 0, a
-    growth event, no overflow; every step one forward and one backward, on
-    the path `fused_fits` picks at that step's buffer and capacity (from
-    the trainer's growth events), the ground truth's views on the path it
-    picks at their buffer (classic at 960x540's 6 << 20)."""
-    (w, h), n_bg = GROW_SIZE, GROW_N_BG
-    argv = ["--width", str(w), "--height", str(h), "--n-bg", str(n_bg),
-            "--max-steps", str(GROW_STEPS)]
-    rec = {}
+GROW_LINE = re.compile(r"^# step (\d+): alive=(\d+) capacity=(\d+) overflow=(\d+) "
+                       r"max_isect=(\d+)$", re.M)
+REFINE_LINE = re.compile(r"^# refine (\d+): n_split=(\d+) n_dup=(\d+) n_cull=(\d+)$", re.M)
+
+
+def grow_refines(err: str) -> list:
+    """grow_demo's refines from its stderr: a `# step` line a span (alive,
+    capacity, overflow, buffer) with the refine's counts where one ran."""
+    counts = {int(m[0]): dict(n_split=int(m[1]), n_dup=int(m[2]), n_cull=int(m[3]))
+              for m in REFINE_LINE.findall(err)}
+    return [dict(step=int(m[0]), alive=int(m[1]), capacity=int(m[2]), overflow=int(m[3]),
+                 max_isect=int(m[4]), **counts.get(int(m[0]), {}))
+            for m in GROW_LINE.findall(err)]
+
+
+def grow_run(total, argv, what: str, rc_want: int = 0) -> dict:
+    """One grow_demo run: exit rc_want, a growth event, no overflow; every step
+    one forward and one backward, on the path `fused_fits` picks at that
+    step's buffer and capacity (from the trainer's growth events), the
+    ground truth's views on the path it picks at their buffer. Returns the
+    tool's JSON with its refines (from its stderr)."""
+    opts = dict(zip(argv[::2], argv[1::2]))
+    w, h, n_bg = int(opts["--width"]), int(opts["--height"]), int(opts["--n-bg"])
+    rec, err = {}, io.StringIO()
 
     def record(fn):
         def call(self, *a, **kw):
@@ -4787,26 +4879,67 @@ def tools_grow(total) -> dict:
             return fn(self, *a, **kw)
         return call
 
-    with wrapped(Trainer, "train", record):
-        rc, printed, launches, seconds = tool_run(grow_demo.main, argv, "grow_demo")
+    with wrapped(Trainer, "train", record), contextlib.redirect_stderr(err):
+        rc, printed, launches, seconds = tool_run(grow_demo.main, argv, what)
     res = last_json(printed)
-    require(rc == 0 and res["n_growth_events"] >= 1 and res["overflow"] == 0
-            and res["optimizer_state_consistent"], f"grow_demo: rc {rc}, {res}")
+    require(rc == rc_want and res["n_growth_events"] >= 1 and res["overflow"] == 0
+            and res["optimizer_state_consistent"], f"{what}: rc {rc}, {res}")
     n, ntl = res["steps"], -(-w // 32) * -(-h // 32)
-    gt_fused = fused_fits(bench_train.gt_capacity(w, h), ntl, n_bg)
+    gt_fused = fused_fits(GROW_GT_ISECT, ntl, n_bg)
     gt_f, gt_c = (GT_VIEWS, 0) if gt_fused else (0, GT_VIEWS)
     events = rec["trainer"].growth_events
     fused = grow_fused_steps(rec["trainer"], n, res["seed_capacity"], ntl)
     classic = n - fused
-    require(fused >= 1, f"grow_demo: no fused step; growth events {events}")
+    require(fused >= 1, f"{what}: no fused step; growth events {events}")
     require_launches(launches, dict(expand_fused=gt_f + fused, expand_pairs=gt_c + classic,
                                     rows_to_attr_major=gt_c + classic,
                                     attr_major_to_rows=classic, blend_forward=GT_VIEWS + n,
                                     blend_backward=n, dense_segment_sum=n),
-                     f"grow_demo: {n} steps, {fused} fused by its growth events")
+                     f"{what}: {n} steps, {fused} fused by its growth events")
     total.update(launches)
-    return dict(res, fused_steps=fused, classic_steps=classic, growth_events=events,
-                launches=launches, seconds=seconds)
+    return dict(res, refines=grow_refines(err.getvalue()), fused_steps=fused,
+                classic_steps=classic, growth_events=events, launches=launches,
+                seconds=seconds)
+
+
+def tpu_log_alive() -> dict:
+    """JAX's TPU run of grow_demo at its defaults (the committed log): the
+    alive count at each logged step."""
+    return {r["step"]: r["alive"] for r in grow_refines(GROW_TPU_LOG.read_text())}
+
+
+def tools_grow(total) -> dict:
+    """grow_demo twice. At 960x540 from 100k seeds for GROW_STEPS steps
+    (JAX's scene for seed 0): every refine's alive count beside JAX's TPU
+    log's. At the size of the CPU comparison (GROW_FIXTURE's arguments, JAX
+    on the CPU): every refine's capacity, buffer and overflow equal to
+    JAX's and its alive count within GROW_ALIVE_TOL."""
+    (w, h), n_bg = GROW_SIZE, GROW_N_BG
+    full = grow_run(total, ["--width", str(w), "--height", str(h), "--n-bg", str(n_bg),
+                            "--max-steps", str(GROW_STEPS)], "grow_demo")
+    tpu = tpu_log_alive()
+    for r in full["refines"]:
+        j = tpu.get(r["step"])
+        ratio = f"{r['alive'] / j:.4f}" if j else "-"
+        log(f"# grow_demo step {r['step']}: alive {r['alive']} (JAX's TPU log: {j}, "
+            f"ratio {ratio}) capacity {r['capacity']} buffer {r['max_isect']} "
+            f"n_dup {r.get('n_dup')} n_cull {r.get('n_cull')} n_split {r.get('n_split')}")
+    fx = json.loads(GROW_FIXTURE.read_text())
+    # (JAX's exit code too: at this size the capacity grows less than 2x)
+    small = grow_run(total, fx["argv"], "grow_demo at the CPU comparison's size", fx["rc"])
+    require([r["step"] for r in small["refines"]] == [r["step"] for r in fx["refines"]],
+            f"grow_demo small: steps {small['refines']} against JAX's {fx['refines']}")
+    for got, want in zip(small["refines"], fx["refines"]):
+        log(f"# grow_demo {fx['argv']} step {got['step']}: alive {got['alive']} "
+            f"(JAX on the CPU {want['alive']}), capacity {got['capacity']} "
+            f"({want['capacity']}), buffer {got['max_isect']} ({want['max_isect']}), "
+            f"n_dup {got.get('n_dup')} ({want.get('n_dup')}), "
+            f"n_cull {got.get('n_cull')} ({want.get('n_cull')})")
+        require(all(got[k] == want[k] for k in ("capacity", "max_isect", "overflow"))
+                and abs(got["alive"] - want["alive"]) <= GROW_ALIVE_TOL * want["alive"],
+                f"grow_demo small, step {got['step']}: {got} against JAX's {want}")
+    return dict(full, tpu_log_alive={r["step"]: tpu.get(r["step"]) for r in full["refines"]},
+                cpu_size=dict(small, jax=fx["refines"]))
 
 
 def tools_scaling(total) -> dict:
@@ -4968,6 +5101,7 @@ def main(argv=None):
     t_start = time.perf_counter()
     card = phase_card()
     build_s = phase_build()
+    prng_res = phase_prng(dev)
     goldens = phase_goldens(dev)
     params, aux, cfg, batches, main_res, (p_sd, a_sd, train_batches, views) = \
         phase_main(args, dev)
@@ -5047,7 +5181,8 @@ def main(argv=None):
 
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
-        summary = dict(card=card, build_seconds=build_s, goldens=goldens, main=main_res,
+        summary = dict(card=card, build_seconds=build_s, prng=prng_res, goldens=goldens,
+                       main=main_res,
                        train=train_res, classic=classic_res, render_tool=render_res,
                        growth=growth_res, campaign=campaign_res, nuplan=nuplan_res,
                        eval_export=eval_export_res, deformables=deform_res, viewer=viewer_res,

@@ -9,6 +9,8 @@ import math
 
 import torch
 
+from mtgs_torch.core import prng
+
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """Normalize along the last axis; eps-safe at exact-zero (padded) rows."""
@@ -118,13 +120,14 @@ def slerp(q0: torch.Tensor, q1: torch.Tensor, t: torch.Tensor,
     return quat_normalize(w0 * q0 + w1 * q1)
 
 
-def random_quats(generator: torch.Generator, n: int, dtype=torch.float32) -> torch.Tensor:
-    """Uniformly random unit quaternions [n, 4] (Shoemake's method), drawn
-    from `generator` on its device."""
-    kw = dict(generator=generator, dtype=dtype, device=generator.device)
-    u = torch.rand(n, **kw)
-    v = torch.rand(n, **kw) * 2.0 * math.pi
-    w = torch.rand(n, **kw) * 2.0 * math.pi
+def random_quats(key: torch.Tensor, n: int) -> torch.Tensor:
+    """Uniformly random unit quaternions [n, 4] (Shoemake's method), float32,
+    drawn as JAX draws them from `split(key, 3)` (a `core.prng` key) on the
+    key's device."""
+    k1, k2, k3 = prng.split(key, 3)
+    u = prng.uniform(k1, (n,))
+    v = prng.uniform(k2, (n,)) * 2.0 * math.pi
+    w = prng.uniform(k3, (n,)) * 2.0 * math.pi
     return torch.stack([torch.sqrt(1.0 - u) * torch.sin(v), torch.sqrt(1.0 - u) * torch.cos(v),
                         torch.sqrt(u) * torch.sin(w), torch.sqrt(u) * torch.cos(w)], dim=-1)
 

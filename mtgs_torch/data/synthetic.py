@@ -7,24 +7,27 @@ multi-traversal dataset: per-traversal colour gains exercise the
 appearance adapters, the vehicle the rigid instance node, and the
 rendered depth stands in for LiDAR.
 
-Every random draw comes from numpy `default_rng` streams of `seed`, so a
-seed gives the same scene on the CPU and on the card. The JAX package
-draws its ground truth with `jax.random`, so the two packages' scenes
-differ; given the same ground-truth gaussians they render the same
-dataset and draw the same seed points and instance poses (its numpy
-draws are kept as they are). `SyntheticScene` holds numpy arrays only,
-so a scene cache written by either package loads in the other.
+The ground truth is drawn as the JAX package draws it: `core.prng`'s copy
+of `jax.random` from `key(seed)`, split and transformed with JAX's
+primitives, shapes and keys, on the CPU (so a seed gives the same scene
+on the CPU and on the card). The seed subsample and its noise, the
+instance pose noise and the batch order are numpy draws in both packages.
+So one seed gives the JAX package's scene. `SyntheticScene` holds numpy
+arrays only, so a scene cache written by either package loads in the
+other.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Iterator
 
 import numpy as np
 import torch
 
 from mtgs_torch import resolve_device
+from mtgs_torch.core import prng
 from mtgs_torch.core.camera import camera_to_gsplat_viewmat
 from mtgs_torch.core.quat import quat_mult, quat_rotate
 from mtgs_torch.raster import RasterizeConfig, rasterize
@@ -64,96 +67,106 @@ class SyntheticScene:
         return travel * self.n_frames + frame
 
 
-def _f32(*arrays):
-    return tuple(np.asarray(a, np.float32) for a in arrays)
+def _numpy(*tensors):
+    return tuple(t.numpy() for t in tensors)
 
 
-def _gt_gaussians(rng: np.random.Generator, n_bg: int, extent: float,
+def _gt_gaussians(key: torch.Tensor, n_bg: int, extent: float,
                   ground_scale: float = 0.4, color_noise: float = 0.0):
     """A structured street scene with clear air along the camera path:
     ground 45%, buildings 35% (boxes along both road sides, the nearest
     facade >= 3.5 m from the road's centre line), roadside clusters 15%,
     a far backdrop ring 5%; `color_noise` adds per-gaussian speckle that
-    the reconstruction can only resolve by densifying. Returns float32
-    (means [n, 3], quats [n, 4], linear scales [n, 3], opacities [n],
-    colors [n, 3])."""
+    the reconstruction can only resolve by densifying. Every array is
+    drawn from `key` (a `core.prng` key on the CPU) with JAX's primitive,
+    bounds, shape and key, and computed in float32 as JAX does. Returns
+    float32 numpy (means [n, 3], quats [n, 4], linear scales [n, 3],
+    opacities [n], colors [n, 3])."""
+    ks = prng.split(key, 16)
     n_ground = int(n_bg * 0.45)
     n_build = int(n_bg * 0.35)
     n_obj = int(n_bg * 0.15)
     n_back = n_bg - n_ground - n_build - n_obj
+    full = lambda shape, v: torch.full(shape, v, dtype=torch.float32)
+    unit_quats = lambda n: torch.tensor([[1.0, 0, 0, 0]]).repeat(n, 1)
+    sign = lambda k, n: torch.where(prng.bernoulli(k, 0.5, (n,)), 1.0, -1.0)
 
     # ground carpet: flattened gaussians on z = 0, smooth colour field
-    gx = rng.uniform(-extent, extent, n_ground)
-    gy = rng.uniform(-extent, extent, n_ground)
-    ground = np.stack([gx, gy, np.zeros_like(gx)], -1)
-    gcol = np.stack([0.5 + 0.4 * np.sin(gx * 0.7), 0.5 + 0.4 * np.cos(gy * 0.9),
-                     0.4 + 0.3 * np.sin((gx + gy) * 0.5)], -1)
-    gscale = np.stack([np.full(n_ground, ground_scale), np.full(n_ground, ground_scale),
-                       np.full(n_ground, min(0.05, ground_scale / 4))], -1)
-    gquat = np.tile([[1.0, 0, 0, 0]], (n_ground, 1))
+    gx = prng.uniform(ks[0], (n_ground,), -extent, extent)
+    gy = prng.uniform(ks[1], (n_ground,), -extent, extent)
+    ground = torch.stack([gx, gy, torch.zeros_like(gx)], -1)
+    gcol = torch.stack([0.5 + 0.4 * torch.sin(gx * 0.7), 0.5 + 0.4 * torch.cos(gy * 0.9),
+                        0.4 + 0.3 * torch.sin((gx + gy) * 0.5)], -1)
+    gscale = torch.stack([full((n_ground,), ground_scale), full((n_ground,), ground_scale),
+                          full((n_ground,), min(0.05, ground_scale / 4))], -1)
+    gquat = unit_quats(n_ground)
 
     # buildings: boxes along both road sides
     nb = max(4, int(extent / 4))
-    bx = rng.uniform(-extent, extent, nb)
-    side = np.where(rng.random(nb) < 0.5, 1.0, -1.0)
-    by = side * rng.uniform(min(7.0, extent * 0.45), min(15.0, extent * 0.9), nb)
-    bw = rng.uniform(1.5, 4.0, (nb, 3)) * np.array([1.0, 1.0, 2.0])  # half-extents
+    bker = prng.split(ks[2], 6)
+    bx = prng.uniform(bker[0], (nb,), -extent, extent)
+    side = sign(bker[1], nb)
+    by = side * prng.uniform(bker[2], (nb,), min(7.0, extent * 0.45), min(15.0, extent * 0.9))
+    bw = prng.uniform(bker[3], (nb, 3), 1.5, 4.0) * torch.tensor([1.0, 1.0, 2.0])  # half-extents
     # keep the carriageway clear: the nearest facade stays >= ~2.5 m from
     # the camera lanes (|y| <= 1)
-    by = side * np.maximum(np.abs(by), bw[:, 1] + 3.5)
-    bcol = rng.uniform(0.15, 0.9, (nb, 3))
-    which = rng.integers(0, nb, n_build)
-    off = rng.uniform(-1.0, 1.0, (n_build, 3))
-    build = np.stack([bx, by, bw[:, 2]], -1)[which] + off * bw[which]  # fill the box
-    build[:, 2] = np.maximum(build[:, 2], 0.05)
+    by = side * torch.maximum(torch.abs(by), bw[:, 1] + 3.5)
+    bcol = prng.uniform(bker[4], (nb, 3), 0.15, 0.9)
+    which = prng.randint(ks[3], (n_build,), 0, nb).long()
+    off = prng.uniform(ks[4], (n_build, 3), -1.0, 1.0)
+    build = torch.stack([bx, by, bw[:, 2]], -1)[which] + off * bw[which]  # fill the box
+    build[:, 2] = torch.maximum(build[:, 2], torch.tensor(0.05))
     # facade stripes: the buildings' own high-frequency texture
-    stripe = 0.15 * np.sin(build[:, 2] * 4.0)[:, None]
-    bcols = np.clip(bcol[which] + stripe, 0.02, 1.0)
-    bscale = np.exp(rng.standard_normal((n_build, 3)) * 0.25 - 1.35)
-    bquat = rng.standard_normal((n_build, 4))
+    stripe = 0.15 * torch.sin(build[:, 2] * 4.0)[:, None]
+    bcols = torch.clamp(bcol[which] + stripe, 0.02, 1.0)
+    bscale = torch.exp(prng.normal(ks[5], (n_build, 3)) * 0.25 - 1.35)
+    bquat = prng.normal(ks[6], (n_build, 4))
 
     # roadside objects: small clusters (trees, poles) near the road
     ncl = max(6, n_obj // 400)
-    cx = rng.uniform(-extent, extent, ncl)
-    cside = np.where(rng.random(ncl) < 0.5, 1.0, -1.0)
-    cy = cside * rng.uniform(4.5, 7.0, ncl)
-    cz = rng.uniform(0.8, 2.5, ncl)
-    ccol = rng.uniform(0.1, 0.8, (ncl, 3))
-    ow = rng.integers(0, ncl, n_obj)
-    objs = np.stack([cx, cy, cz], -1)[ow] + 0.6 * rng.standard_normal((n_obj, 3))
-    objs[:, 2] = np.abs(objs[:, 2]) + 0.1
-    ocols = np.clip(ccol[ow] + 0.1 * rng.standard_normal((n_obj, 3)), 0.02, 1.0)
-    oscale = np.exp(rng.standard_normal((n_obj, 3)) * 0.3 - 1.6)
-    oquat = rng.standard_normal((n_obj, 4))
+    oker = prng.split(ks[7], 5)
+    cx = prng.uniform(oker[0], (ncl,), -extent, extent)
+    cy = sign(oker[1], ncl) * prng.uniform(oker[2], (ncl,), 4.5, 7.0)
+    cz = prng.uniform(oker[3], (ncl,), 0.8, 2.5)
+    ccol = prng.uniform(oker[4], (ncl, 3), 0.1, 0.8)
+    ow = prng.randint(ks[8], (n_obj,), 0, ncl).long()
+    objs = torch.stack([cx, cy, cz], -1)[ow] + 0.6 * prng.normal(ks[9], (n_obj, 3))
+    objs[:, 2] = torch.abs(objs[:, 2]) + 0.1
+    ocols = torch.clamp(ccol[ow] + 0.1 * prng.normal(ks[10], (n_obj, 3)), 0.02, 1.0)
+    oscale = torch.exp(prng.normal(ks[11], (n_obj, 3)) * 0.3 - 1.6)
+    oquat = prng.normal(ks[12], (n_obj, 4))
 
     # far backdrop: a coarse ring past the block edge (horizon content;
     # the sub-pixel far-field regime)
-    th = rng.uniform(0, 2 * np.pi, n_back)
-    rr = extent * (1.3 + 0.4 * rng.random(n_back))
-    bz = rng.uniform(0.0, extent * 0.25, n_back)
-    back = np.stack([rr * np.cos(th), rr * np.sin(th), bz], -1)
-    backcol = np.stack([0.35 + 0.3 * np.sin(th * 3), 0.4 + 0.2 * np.cos(th * 5),
-                        0.5 + 0.2 * np.sin(th * 2 + 1.0)], -1)
-    backscale = np.full((n_back, 3), extent * 0.02)
-    backquat = np.tile([[1.0, 0, 0, 0]], (n_back, 1))
+    th = prng.uniform(ks[13], (n_back,), 0.0, 2 * math.pi)
+    rr = extent * (1.3 + 0.4 * prng.uniform(ks[14], (n_back,)))
+    bz = prng.uniform(ks[15], (n_back,), 0.0, extent * 0.25)
+    back = torch.stack([rr * torch.cos(th), rr * torch.sin(th), bz], -1)
+    backcol = torch.stack([0.35 + 0.3 * torch.sin(th * 3), 0.4 + 0.2 * torch.cos(th * 5),
+                           0.5 + 0.2 * torch.sin(th * 2 + 1.0)], -1)
+    backscale = full((n_back, 3), extent * 0.02)
+    backquat = unit_quats(n_back)
 
-    means = np.concatenate([ground, build, objs, back])
-    colors = np.concatenate([gcol, bcols, ocols, backcol])
+    means = torch.cat([ground, build, objs, back])
+    colors = torch.cat([gcol, bcols, ocols, backcol])
     if color_noise > 0:
-        colors = np.clip(colors + color_noise * rng.uniform(-1.0, 1.0, (n_bg, 3)), 0.0, 1.0)
-    scales = np.concatenate([gscale, bscale, oscale, backscale])
-    quats = np.concatenate([gquat, bquat, oquat, backquat])
-    return _f32(means, quats, scales, np.full((n_bg,), 0.9), colors)
+        noise = prng.uniform(prng.fold_in(key, 17), (n_bg, 3), -1.0, 1.0)
+        colors = torch.clamp(colors + color_noise * noise, 0.0, 1.0)
+    scales = torch.cat([gscale, bscale, oscale, backscale])
+    quats = torch.cat([gquat, bquat, oquat, backquat])
+    return _numpy(means, quats, scales, full((n_bg,), 0.9), colors)
 
 
-def _instance_gaussians(rng: np.random.Generator, m: int):
+def _instance_gaussians(key: torch.Tensor, m: int):
     """A box-ish cluster (the 'vehicle') in its local frame, size ~ (4, 2,
-    1.5); float32 (xyz, quats, linear scales, opacities, colors)."""
-    xyz = rng.uniform(-0.5, 0.5, (m, 3)) * np.array([4.0, 2.0, 1.5])
-    col = np.tile([[0.85, 0.15, 0.1]], (m, 1)) + 0.1 * rng.standard_normal((m, 3))
-    scales = np.exp(rng.standard_normal((m, 3)) * 0.2 - 1.8)
-    quats = np.tile([[1.0, 0, 0, 0]], (m, 1))
-    return _f32(xyz, quats, scales, np.full((m,), 0.95), np.clip(col, 0, 1))
+    1.5), drawn from `key` as JAX draws it; float32 numpy (xyz, quats,
+    linear scales, opacities, colors)."""
+    ks = prng.split(key, 3)
+    xyz = prng.uniform(ks[0], (m, 3), -0.5, 0.5) * torch.tensor([4.0, 2.0, 1.5])
+    col = torch.tensor([[0.85, 0.15, 0.1]]).repeat(m, 1) + 0.1 * prng.normal(ks[1], (m, 3))
+    scales = torch.exp(prng.normal(ks[2], (m, 3)) * 0.2 - 1.8)
+    quats = torch.tensor([[1.0, 0, 0, 0]]).repeat(m, 1)
+    return _numpy(xyz, quats, scales, torch.full((m,), 0.95), torch.clamp(col, 0, 1))
 
 
 def make_synthetic_scene(
@@ -183,10 +196,9 @@ def make_synthetic_scene(
     `truncate_gt`: then it keeps the truncated render, its farthest pairs
     dropped, as JAX's `make_synthetic_scene` does."""
     dev = resolve_device(device)
-    bg = _gt_gaussians(np.random.default_rng([seed, 0]), n_bg, extent, ground_scale,
-                       color_noise)
-    ixyz, iquat, iscale, iopac, icol = _instance_gaussians(
-        np.random.default_rng([seed, 1]), n_instance)
+    kb, ki = prng.split(prng.key(seed))
+    bg = _gt_gaussians(kb, n_bg, extent, ground_scale, color_noise)
+    ixyz, iquat, iscale, iopac, icol = _instance_gaussians(ki, n_instance)
 
     K = np.array(
         [[0.9 * width, 0, width / 2], [0, 0.9 * width, height / 2], [0, 0, 1.0]],

@@ -11,13 +11,13 @@ full f32 (the package pins TF32 off).
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import Tuple
 
 import torch
 
 from mtgs_torch import resolve_device
+from mtgs_torch.core import prng
 
 X_MULTIRES = 10
 T_MULTIRES = 10
@@ -55,27 +55,29 @@ class DeformMLPParams:
     b_scale: torch.Tensor
 
 
-def init_deform_mlp(embed_dim: int = 16, *, generator: torch.Generator,
+def init_deform_mlp(key: torch.Tensor, embed_dim: int = 16, *,
                     device="cuda") -> DeformMLPParams:
     """He-normal hidden layers, zero biases and near-identity heads
-    (normal * 1e-4), drawn from `generator` on its own device and placed
-    on `device` (the card unless it says otherwise)."""
+    (normal * 1e-4): JAX's draws from `split(key, DEPTH + 3)` (a
+    `core.prng` key), made on the key's device and placed on `device` (the
+    card unless it says otherwise)."""
     dev = resolve_device(device)
     d_in = _in_dim(embed_dim)
     dims = [d_in] + [HIDDEN] * DEPTH
-    normal = lambda *shape: torch.randn(shape, generator=generator,
-                                        device=generator.device).to(dev)
+    keys = prng.split(key, DEPTH + 3)
     zeros = lambda n: torch.zeros((n,), dtype=torch.float32, device=dev)
     ws, bs = [], []
     for i in range(DEPTH):
         fan_in = dims[i] + (d_in if i == SKIP else 0)
-        ws.append(normal(fan_in, HIDDEN) * math.sqrt(2.0 / fan_in))
+        w = prng.normal(keys[i], (fan_in, HIDDEN)) * torch.tensor(2.0 / fan_in).sqrt()
+        ws.append(w.to(dev))
         bs.append(zeros(HIDDEN))
+    head = lambda k, n: (prng.normal(k, (HIDDEN, n)) * 1e-4).to(dev)  # near-identity start
     return DeformMLPParams(
         w=tuple(ws), b=tuple(bs),
-        w_xyz=normal(HIDDEN, 3) * 1e-4, b_xyz=zeros(3),
-        w_quat=normal(HIDDEN, 4) * 1e-4, b_quat=zeros(4),
-        w_scale=normal(HIDDEN, 3) * 1e-4, b_scale=zeros(3),
+        w_xyz=head(keys[-3], 3), b_xyz=zeros(3),
+        w_quat=head(keys[-2], 4), b_quat=zeros(4),
+        w_scale=head(keys[-1], 3), b_scale=zeros(3),
     )
 
 

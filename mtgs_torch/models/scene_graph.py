@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from mtgs_torch import resolve_device
+from mtgs_torch.core import prng
 from mtgs_torch.core.quat import quat_mult, quat_normalize, quat_rotate, slerp
 from mtgs_torch.core.sh import sh_basis
 from mtgs_torch.models import deform as deform_lib
@@ -291,15 +292,14 @@ def init_scene(
 ) -> Tuple[SceneParams, SceneAux]:
     """Assemble SceneParams/SceneAux from per-node inits; the appearance,
     camera-opt and (with wild_appearance) WildGaussians leaves on the card
-    unless `device` says otherwise. The wild weights come from a CPU
-    generator seeded 0, so a scene is the same on the CPU and the card."""
+    unless `device` says otherwise. The wild weights are JAX's draws from
+    `key(0)`, made on the CPU, so a scene is the same on the CPU and the card."""
     from mtgs_torch.models.appearance import init_exposure
 
     device = resolve_device(device)
     wild = None
     if wild_appearance:
-        wild = wild_lib.init_wild(num_images, generator=torch.Generator().manual_seed(0),
-                                  device=device)
+        wild = wild_lib.init_wild(prng.key(0), num_images, device=device)
     params = SceneParams(
         background=background[0],
         skybox=None if skybox is None else skybox[0],

@@ -11,12 +11,12 @@ view-dependent SH colour.
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 
 import torch
 
 from mtgs_torch import resolve_device
+from mtgs_torch.core import prng
 from mtgs_torch.core.sh import sh_to_rgb
 
 EMBED_DIM = 32
@@ -35,20 +35,20 @@ class WildAppearanceParams:
     b3: torch.Tensor
 
 
-def init_wild(num_images: int, *, generator: torch.Generator,
-              device="cuda") -> WildAppearanceParams:
+def init_wild(key: torch.Tensor, num_images: int, *, device="cuda") -> WildAppearanceParams:
     """Embeddings normal * 0.01, He-normal hidden layers, a near-zero head
-    (normal * 1e-3), zero biases; drawn from `generator` on its own device
-    and placed on `device` (the card unless it says otherwise)."""
+    (normal * 1e-3), zero biases: JAX's draws from `split(key, 4)` (a
+    `core.prng` key), made on the key's device and placed on `device` (the
+    card unless it says otherwise)."""
     dev = resolve_device(device)
-    normal = lambda *shape: torch.randn(shape, generator=generator,
-                                        device=generator.device).to(dev)
+    k = prng.split(key, 4)
+    he = lambda kk, i, o: prng.normal(kk, (i, o)) * torch.tensor(2.0 / i).sqrt()
     zeros = lambda n: torch.zeros((n,), dtype=torch.float32, device=dev)
     return WildAppearanceParams(
-        embeddings=normal(num_images, EMBED_DIM) * 0.01,
-        w1=normal(IN_DIM, HIDDEN) * math.sqrt(2.0 / IN_DIM), b1=zeros(HIDDEN),
-        w2=normal(HIDDEN, HIDDEN) * math.sqrt(2.0 / HIDDEN), b2=zeros(HIDDEN),
-        w3=normal(HIDDEN, 6) * 1e-3, b3=zeros(6),
+        embeddings=(prng.normal(k[0], (num_images, EMBED_DIM)) * 0.01).to(dev),
+        w1=he(k[1], IN_DIM, HIDDEN).to(dev), b1=zeros(HIDDEN),
+        w2=he(k[2], HIDDEN, HIDDEN).to(dev), b2=zeros(HIDDEN),
+        w3=(prng.normal(k[3], (HIDDEN, 6)) * 1e-3).to(dev), b3=zeros(6),
     )
 
 

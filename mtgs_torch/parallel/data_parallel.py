@@ -9,7 +9,8 @@ last compensation takes the new maximum where it is above 0 (a rank that
 did not see a gaussian reports 0). Every rank then applies the same Adam
 update to the same state, so no parameter is ever broadcast: the states
 stay alike bit for bit, as long as every rank runs the same host loop
-(`DPTrainer`: the refine noise comes from a generator seeded alike).
+(`DPTrainer`: the refine noise comes from one key chain seeded alike, which
+the step passes through untouched, as JAX's does).
 """
 
 from __future__ import annotations

@@ -40,11 +40,6 @@ def main(argv=None) -> int:
     ap.add_argument("--max-steps", type=int, default=2000)
     ap.add_argument("--refine-every", type=int, default=50)
     ap.add_argument("--max-isect", type=int, default=1 << 21)
-    ap.add_argument("--gt-truncate", action="store_true",
-                    help="render the ground truth as JAX's tool does: at 1 << 17 pairs, "
-                         "a view past them truncated (its farthest pairs dropped); by "
-                         "default the buffer is bench_train.gt_capacity of the image and "
-                         "a view past it raises")
     ap.add_argument("--device", default="cuda",
                     help="torch device (cpu only when asked for)")
     args = ap.parse_args(argv)
@@ -53,20 +48,18 @@ def main(argv=None) -> int:
     from mtgs_torch.data.synthetic import (
         batch_iterator, build_scene_model, make_synthetic_scene,
     )
-    from mtgs_torch.tools.bench_train import gt_capacity
     from mtgs_torch.train import control as ctrl
     from mtgs_torch.train import losses as loss_lib
     from mtgs_torch.train.trainer import Trainer, TrainerConfig
 
     t0 = time.perf_counter()
-    # the ground truth's buffer scaled to the image, where JAX's tool renders
-    # at make_synthetic_scene's default 1 << 17, truncated at 960x540
-    gt_isect = 1 << 17 if args.gt_truncate else gt_capacity(args.width, args.height)
+    # the ground truth at make_synthetic_scene's default 1 << 17 pairs, as
+    # JAX's tool renders it (seed 0's six views at 960x540 fit; where a view
+    # would not, the port raises and JAX's truncates)
     scene = make_synthetic_scene(
         seed=0, width=args.width, height=args.height, n_travels=2,
         n_frames=3, n_bg=args.n_bg, n_instance=0, extent=60.0,
-        n_seed=args.n_bg, gt_max_intersections=gt_isect, truncate_gt=args.gt_truncate,
-        device=dev,
+        n_seed=args.n_bg, device=dev,
     )
     params, aux = build_scene_model(scene, with_instances=False, device=dev)
     print(f"# scene+model in {time.perf_counter() - t0:.1f}s; "
@@ -96,8 +89,12 @@ def main(argv=None) -> int:
     steps_done = 0
     while steps_done < args.max_steps:
         span = min(args.refine_every, args.max_steps - steps_done)
+        n_refines = len(trainer.refine_events)
         trainer.train(span)
         steps_done += span
+        for e in trainer.refine_events[n_refines:]:
+            print(f"# refine {e['step']}: n_split={e['n_split']} n_dup={e['n_dup']} "
+                  f"n_cull={e['n_cull']}", file=sys.stderr)
         alive = int(trainer.aux.background.num_alive)
         cap = trainer.state.params.background.capacity
         print(f"# step {steps_done}: alive={alive} capacity={cap} "

@@ -6,8 +6,8 @@ reference's; port of `mtgs_tpu/train/checkpoint.py` (`save_checkpoint`,
 
 The payload is the JAX package's: params, densify statistics, step, aux
 and, unless stripped, the optimizer state (Adam's moments and count). Like
-JAX's, it carries no generator state: a rebuilt `Trainer` re-seeds its
-refine generator. The format is torch-native: a checkpoint is a
+JAX's, it carries no random key: a rebuilt `Trainer` starts its refine
+key chain anew from its seed. The format is torch-native: a checkpoint is a
 directory holding one `torch.save` file of nested dicts, one level per
 dataclass field (a tuple, such as the deform MLP's `w`, is a dict keyed
 "0", "1", ..., as in flax's state dicts), so a leaf's dotted path in it is

@@ -136,6 +136,13 @@ def edge_aware_tv(depth, rgb) -> torch.Tensor:
     return (gdx * torch.exp(-gix)).mean() + (gdy * torch.exp(-giy)).mean()
 
 
+def mean_angular_error(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """Per-pixel angular error (radians) between normal maps
+    (`geometric_loss.py:305-320`): [H, W, 3] each (unit vectors) -> [H, W],
+    arccos of the clamped channel dot product."""
+    return torch.arccos(torch.clamp((pred * gt).sum(dim=-1), -1.0, 1.0))
+
+
 def _extract_patches(img: torch.Tensor, patch: int, stride: int) -> torch.Tensor:
     """[H, W] -> [n_patches, patch * patch]: F.unfold with SAME padding.
     The JAX function stacks patch * patch strided slices; `unfold` is the

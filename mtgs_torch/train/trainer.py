@@ -39,6 +39,7 @@ from typing import Dict, Iterator, List, Optional
 import torch
 
 from mtgs_torch import resolve_device
+from mtgs_torch.core import prng
 from mtgs_torch.core.camera import camera_to_gsplat_viewmat
 from mtgs_torch.core.quat import quat_to_rotmat
 from mtgs_torch.models.appearance import apply_exposure
@@ -442,9 +443,9 @@ class Trainer:
         self.loop_stats = dict(dispatch_s=0.0, refine_s=0.0, sync_s=0.0, steps=0)
         self.optim_config = optim_config or OptimConfig(groups=default_groups(cfg.max_steps))
         self.state = init_train_state(params)
-        # the split/dup noise of refine passes
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        # the split/dup noise of refine passes: JAX's key chain (each refine
+        # splits it in five, the first carried on)
+        self.key = prng.key(seed, device=self.device)
         self.growth_events: List[dict] = []
         self.refine_overflow = 0
         self.refine_events: List[dict] = []
@@ -504,9 +505,13 @@ class Trainer:
         info = dict(step=st.step, overflow=0, n_split=0, n_dup=0, n_cull=0)
         kw = dict(do_densify=do_densify, do_cull_big=do_cull_big, use_screen_size=use_screen)
 
-        def run(kind, node, aux, mu_n, nu_n, dstate):
-            eps = torch.randn((out_caps[kind], 3), generator=self.generator,
-                              device=self.device, dtype=node.means.dtype)
+        # JAX's draws: background k1, skybox k2, instance i split(k3, I)[i],
+        # deformable i split(k4, I)[i], each normal(key, (out_cap, 3))
+        self.key, *node_keys = prng.split(self.key, 5)
+        node_keys = dict(zip(("background", "skybox") + STACKED, node_keys))
+
+        def run(kind, node, aux, mu_n, nu_n, dstate, key):
+            eps = prng.normal(key, (out_caps[kind], 3)).to(node.means.dtype)
             r = ctrl.refine_node(eps, node, aux, mu_n, nu_n, dstate,
                                  self.cfg.node_control(kind), out_cap=out_caps[kind], **kw)
             for k in ("overflow", "n_split", "n_dup", "n_cull"):
@@ -515,7 +520,7 @@ class Trainer:
 
         params, aux = st.params, self.aux
         r = run("background", params.background, aux.background, mu.background,
-                nu.background, st.densify["background"])
+                nu.background, st.densify["background"], node_keys["background"])
         params = dataclasses.replace(params, background=r.params)
         mu = dataclasses.replace(mu, background=r.mu)
         nu = dataclasses.replace(nu, background=r.nu)
@@ -523,7 +528,7 @@ class Trainer:
         st.densify["background"] = r.state
         if params.skybox is not None:
             r = run("skybox", params.skybox, aux.skybox, mu.skybox, nu.skybox,
-                    st.densify["skybox"])
+                    st.densify["skybox"], node_keys["skybox"])
             params = dataclasses.replace(params, skybox=r.params)
             mu = dataclasses.replace(mu, skybox=r.mu)
             nu = dataclasses.replace(nu, skybox=r.nu)
@@ -536,11 +541,13 @@ class Trainer:
             if block is None:
                 continue
             ia, mb, nb = getattr(aux, kind), getattr(mu, kind), getattr(nu, kind)
+            n_inst = block.node.means.shape[0]
+            keys = prng.split(node_keys[kind], n_inst)
             outs = [run(kind, _node_slice(block.node, i),
                         NodeAux(alive=ia.alive[i], num_alive=ia.num_alive[i]),
                         _node_slice(mb.node, i), _node_slice(nb.node, i),
-                        _node_slice(st.densify[kind], i))
-                    for i in range(block.node.means.shape[0])]
+                        _node_slice(st.densify[kind], i), keys[i])
+                    for i in range(n_inst)]
             params = dataclasses.replace(params, **{kind: dataclasses.replace(
                 block, node=stack_nodes([o.params for o in outs]))})
             mu = dataclasses.replace(mu, **{kind: dataclasses.replace(

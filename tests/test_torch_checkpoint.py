@@ -4,8 +4,8 @@
 Exactness: a save/load round trip and a resumed run are `torch.equal`
 to the saved state and to an uninterrupted run (the CPU runs each step's
 reductions in the same order every time, and nothing in the window is
-random: no refine falls inside it, and a rebuilt Trainer re-seeds its
-refine generator, as JAX's does). `pad_scene_to_caps` is held exactly
+random: no refine falls inside it, and a rebuilt Trainer starts its
+refine key chain anew from its seed, as JAX's does). `pad_scene_to_caps` is held exactly
 equal to JAX's on the same numpy scene.
 """
 

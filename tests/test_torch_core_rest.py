@@ -4,10 +4,10 @@ The same numpy inputs (made from a seed) go through the JAX function and its
 port. Floats agree within atol 1e-6, or within 1e-5 where JAX's own tests of
 the function use it (`redistort_image`: tests/test_eval_metrics.py; the SH
 colour: tests/test_core_math.py; the velocities: tests/test_models.py).
-`random_quats` draws from a torch.Generator, which cannot reproduce JAX's
-PRNG: it is held as tests/test_core_math.py holds the JAX one (unit norm,
-uniform on the sphere), and its Shoemake formula against JAX's on the same
-uniforms.
+`random_quats` draws JAX's uniforms from a `core.prng` key: it is held
+as tests/test_core_math.py holds the JAX one (unit norm, uniform on the
+sphere), and against JAX's on the same key (1e-6: sin, cos and sqrt may
+round an ulp apart).
 """
 
 import math
@@ -26,6 +26,7 @@ from mtgs_tpu.core import sh as jsh
 from mtgs_tpu.models import fourier as jfourier
 import mtgs_torch.core as tcore
 from mtgs_torch.core import camera as tcam
+from mtgs_torch.core import prng
 from mtgs_torch.core import quat as tquat
 from mtgs_torch.core import sh as tsh
 from mtgs_torch.models import fourier as tfourier
@@ -142,8 +143,7 @@ def test_camera_velocity_in_world_matches():
 
 
 def test_random_quats_are_uniform_unit_quaternions():
-    g = torch.Generator().manual_seed(0)
-    q = tquat.random_quats(g, 20000)
+    q = tquat.random_quats(prng.key(0), 20000)
     assert q.shape == (20000, 4) and q.dtype == torch.float32
     np.testing.assert_allclose(torch.linalg.norm(q, dim=-1).numpy(), 1.0, atol=1e-6)
     # uniform on S^3: every component has mean 0 and E[q_i^2] = 1/4
@@ -152,23 +152,17 @@ def test_random_quats_are_uniform_unit_quaternions():
     # the rotation of a fixed axis is uniform on S^2 (mean 0)
     R = tquat.quat_to_rotmat(q)
     assert float(R[:, :, 2].mean(0).abs().max()) < 0.03
-    # one generator state gives one draw
-    again = tquat.random_quats(torch.Generator().manual_seed(0), 20000)
-    assert torch.equal(q, again)
+    # one key gives one draw, another key another
+    assert torch.equal(q, tquat.random_quats(prng.key(0), 20000))
+    assert not torch.equal(q, tquat.random_quats(prng.key(1), 20000))
 
 
-def test_random_quats_formula_matches_jax(monkeypatch):
-    """Shoemake's formula on the same uniforms: each package's draws are
-    replaced by the same three arrays, in the order each function asks."""
-    rng = np.random.default_rng(5)
-    draws = [rng.random(257).astype(np.float32) for _ in range(3)]
-    j_calls, t_calls = iter(draws), iter(draws)
-    monkeypatch.setattr(jax.random, "uniform",
-                        lambda key, shape, dtype=jnp.float32: jnp.asarray(next(j_calls)))
-    monkeypatch.setattr(tquat.torch, "rand",
-                        lambda n, **kw: torch.from_numpy(next(t_calls).copy()))
-    want = jquat.random_quats(jax.random.key(0), 257)
-    got = tquat.random_quats(torch.Generator(), 257)
+@pytest.mark.parametrize("seed, n", [(0, 257), (11, 1000)])
+def test_random_quats_formula_matches_jax(seed, n):
+    """Shoemake's formula on JAX's uniforms: the same key, the same
+    quaternions."""
+    want = jquat.random_quats(jax.random.key(seed), n)
+    got = tquat.random_quats(prng.key(seed), n)
     close(got, want)
 
 

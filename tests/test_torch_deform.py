@@ -35,6 +35,7 @@ from mtgs_tpu.models import wild as jwild
 from mtgs_tpu.train import optim as joptim
 from mtgs_tpu.train import trainer as jtr
 from mtgs_torch import configs as tconfigs
+from mtgs_torch.core import prng
 from mtgs_torch.data import synthetic as tsyn
 from mtgs_torch.models import deform as tdeform
 from mtgs_torch.models import scene_graph as tsg
@@ -161,6 +162,27 @@ def test_posenc_matches_jax():
     np.testing.assert_allclose(got[:, 3:6], np.sin(x), rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(got[:, 33:36], np.cos(x), rtol=1e-6, atol=1e-7)
     assert (tdeform._in_dim(16), twild.IN_DIM) == (100, 59)
+
+
+@pytest.mark.parametrize("seed, embed_dim, num_images", [(0, 16, 4), (7, 8, 6)])
+def test_init_deform_mlp_and_init_wild_match_jax(seed, embed_dim, num_images):
+    """The deform MLP (split(key, DEPTH + 3)) and the WildGaussians weights
+    (split(key, 4)) drawn from one key: JAX's within 1e-6 (the He scale
+    sqrt(2 / fan_in) in float32, as JAX takes it)."""
+    init_mlp = jax.jit(jdeform.init_deform_mlp, static_argnums=(1,))  # one compile
+    want = flat(to_sd(init_mlp(jax.random.key(seed), embed_dim)))
+    got = dict(named_leaves(tdeform.init_deform_mlp(prng.key(seed), embed_dim, device="cpu")))
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        assert got[k].shape == w.shape and got[k].dtype == torch.float32, k
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=1e-6, atol=1e-7, err_msg=k)
+    want = flat(to_sd(jax.jit(jwild.init_wild, static_argnums=(1,))(jax.random.key(seed),
+                                                                      num_images)))
+    got = dict(named_leaves(twild.init_wild(prng.key(seed), num_images, device="cpu")))
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=1e-6, atol=1e-7, err_msg=k)
+    assert float(got["w1"].std()) > 0.05
 
 
 def test_deform_mlp_and_apply_deform_match_jax(scene_pair):
@@ -455,7 +477,7 @@ def deformable_model(scene, *, cap=None, wild=False):
     deform = tsg.DeformableParams(
         node=node, quats=inst.quats, trans=inst.trans,
         embeddings=torch.zeros((inst.node.means.shape[0], 16)),
-        mlp=tdeform.init_deform_mlp(generator=torch.Generator().manual_seed(0), device="cpu"))
+        mlp=tdeform.init_deform_mlp(prng.key(0), device="cpu"))
     params = dataclasses.replace(params, instances=None, deformables=deform)
     return params, dataclasses.replace(aux, instances=None, deformables=iaux)
 

@@ -39,6 +39,7 @@ def test_importing_the_port_loads_no_jax():
     mods = all_modules()
     assert "mtgs_torch.eval.pipeline" in mods and "mtgs_torch.raster.blend" in mods
     assert "mtgs_torch.tools.render" in mods and "mtgs_torch.raster.expand_pairs" in mods
+    assert "mtgs_torch.core.prng" in mods
     assert {"mtgs_torch.data.synthetic", "mtgs_torch.train.checkpoint",
             "mtgs_torch.tools.campaign"} <= set(mods)
     assert {"mtgs_torch.data.image_io", "mtgs_torch.data.nuplan", "mtgs_torch.data.dataset",

@@ -115,6 +115,30 @@ def test_normals_ssim_and_metrics_match():
         close(got[k], want[k])
 
 
+@pytest.mark.parametrize("case", ["same", "orthogonal", "antiparallel", "random"])
+def test_mean_angular_error_matches_jax(case):
+    """`mean_angular_error` on the cases of tests/test_eval_metrics.py (x
+    against x, x against y, x against -x: 0, pi/2, pi) and on random unit
+    normals, against JAX's."""
+    x = np.zeros((2, 2, 3), np.float32)
+    x[..., 0] = 1.0
+    if case == "random":
+        rng = np.random.default_rng(3)
+        a, b = (rng.normal(size=(16, 24, 3)).astype(np.float32) for _ in range(2))
+        a, b = (v / np.linalg.norm(v, axis=-1, keepdims=True) for v in (a, b))
+    else:
+        y = np.zeros_like(x)
+        y[..., 1] = 1.0
+        a, b = x, dict(same=x, orthogonal=y, antiparallel=-x)[case]
+    got = tloss.mean_angular_error(t(a), t(b))
+    want = jloss.mean_angular_error(jnp.asarray(a), jnp.asarray(b))
+    assert tuple(got.shape) == a.shape[:2]
+    close(got, want)
+    if case != "random":
+        expect = dict(same=0.0, orthogonal=np.pi / 2, antiparallel=np.pi)[case]
+        np.testing.assert_allclose(got.numpy(), expect, atol=1e-6)
+
+
 def test_mtgs_config_render_fields_match():
     j = jconfigs.mtgs_config(960, 540, max_steps=10001)
     p = tconfigs.mtgs_config(960, 540, max_steps=10001)

@@ -431,3 +431,59 @@ def test_trainer_loop_refines_resets_and_grows_on_schedule():
     assert st.densify["background"].xys_grad_norm.shape == (cap,)
     assert st.step == 6 and int(st.adam.count) == 6
     assert all(float(h["nonfinite_grad_step"]) == 0 for h in history)
+
+
+def test_trainer_refine_split_noise_matches_jax():
+    """One refine of a Trainer, split noise on (`clone_sample_means`), on
+    the same seed: the port's key chain splits as JAX's does (five keys, the
+    first carried on; the instance rows split(k3, I)), so the sampled means
+    of every node, and so every refined parameter, equal JAX's: the
+    background's within 1e-6 (relative above 1), the skybox's and the
+    instance's within 1e-6 of the leaf's largest magnitude (a sky mean 300
+    m out that the noise moves near 0 keeps the rounding of 300: ulp 3e-5);
+    the carried key is JAX's. Growth is off on both sides (JAX's growth
+    plan would start a speculative compile)."""
+    jp, ja = build_jax_scene(4)
+    tp, ta = scene_from_state_dict(to_sd(jp), to_sd(ja), device="cpu")
+    cc = dict(densify_grad_thresh=1e-4, densify_size_thresh=0.6)
+    jcfg = jtr.TrainerConfig(width=W, height=H, auto_grow=False, backend="xla",
+                             control=jctrl.ControlConfig(**cc))
+    tcfg = ttr.TrainerConfig(width=W, height=H, auto_grow=False,
+                             control=tctrl.ControlConfig(**cc))
+    jt = jtr.Trainer(jcfg, jp, ja, iter(()), seed=9)
+    tt = ttr.Trainer(tcfg, tp, ta, iter(()), seed=9, device="cpu")
+    rng = np.random.default_rng(21)
+    densify = {}
+    for kind, d in jt.state.densify.items():
+        shape = d.xys_grad_norm.shape
+        vis = rng.integers(1, 4, shape).astype(np.float32)
+        densify[kind] = dict(xys_grad_norm=(rng.uniform(0, 6e-4, shape) * vis).astype(np.float32),
+                             vis_counts=vis,
+                             max_2dsize=rng.uniform(0, 50, shape).astype(np.float32),
+                             last_comp=rng.uniform(0.5, 1.0, shape).astype(np.float32))
+    jt.state = jt.state.replace(densify={k: jctrl.DensifyState(**{
+        f: jnp.asarray(v) for f, v in d.items()}) for k, d in densify.items()})
+    tt.state.densify = {k: tctrl.DensifyState(**{f: torch.from_numpy(v) for f, v in d.items()})
+                        for k, d in densify.items()}
+    flags = (True, False, True)
+    fn = jt._get_refine_fn(flags, jt._plan_growth(flags))
+    jstate, jaux, jinfo = fn(jt.state, jt.aux)
+    info = tt.refine(flags)
+    assert int(jinfo["n_split"]) > 0 and int(jinfo["n_dup"]) > 0
+    for k in ("n_split", "n_dup", "n_cull", "overflow"):
+        assert info[k] == int(jinfo[k]), k
+    assert np.array_equal(tt.key.numpy(), raw_key(jstate.key))
+    want = flat(to_sd(jstate.params))
+    got = dict(named_leaves(tt.state.params))
+    for node in ("background", "skybox", "instances.node"):
+        for f in NODE_FIELDS:
+            k = f"{node}.{f}"
+            scale = 1.0 if node == "background" else float(np.abs(want[k]).max(initial=1.0))
+            np.testing.assert_allclose(got[k].numpy(), want[k], rtol=1e-6, atol=1e-6 * scale,
+                                       err_msg=k)
+    np.testing.assert_array_equal(tt.aux.background.alive.numpy(),
+                                  np.asarray(jaux.background.alive))
+
+
+def raw_key(key):
+    return np.asarray(jax.random.key_data(key)).astype(np.int64)
