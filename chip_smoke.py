@@ -36,8 +36,11 @@ plain PyTorch versions. Phases, each of which raises on failure:
   2b. prng: `core.prng` (the port's copy of `jax.random`, which draws
      the synthetic scenes, the refine noise and the initial weights) on
      the card against the CPU for four seeds, a chain of three splits and
-     a fold_in: keys, bits, uniform, randint and bernoulli bit for bit,
-     normal within 2 ulp, some of its draws from erf_inv's tail branch;
+     a fold_in: keys, bits, uniform, randint, bernoulli and normal bit for
+     bit, some of its draws from erf_inv's tail branch; one refine-sized
+     normal draw (2^20 x 3), erf_inv over every input of its tail branch
+     and `core.xla_math`'s exp, sin, cos and sqrt over 2^20 inputs each,
+     bit for bit;
   3. goldens: the kernel path's rasterize on the four gsplat-math goldens
      in tests/goldens/ (render 2e-3, alpha 1e-3);
   4. main path: the scene in the JAX state-dict layout, carried across
@@ -60,7 +63,9 @@ plain PyTorch versions. Phases, each of which raises on failure:
      phase-4 views with the plain renders as targets (LiDAR depth with
      holes, pseudo depth without); the launch counters are zeroed just
      before and read just after: each of the four fused-path kernels must
-     launch once per step. Every step finite with no skipped step, no
+     launch once per step. The refine's split noise of the background,
+     `normal(key, (out_cap, 3))` drawn on the card, must equal the CPU's
+     draw for that key and out_cap. Every step finite with no skipped step, no
      truncation; on the view of step 0 the total loss falls within each
      stretch between opacity resets (the reset, which sets every
      opacity to 0.01, raises it by design) and the l1 term falls after
@@ -326,7 +331,7 @@ import numpy as np
 import torch
 
 from mtgs_torch import configs
-from mtgs_torch.core import prng
+from mtgs_torch.core import prng, xla_math
 from mtgs_torch.data import image_io, loader as data_loader
 from mtgs_torch.data.dataset import SampleConfig, load_sample, undistort_image
 from mtgs_torch.data.nuplan import parse_scene
@@ -913,8 +918,46 @@ def phase_build():
 
 
 PRNG_SEEDS = (0, 7, 2**31 - 1, 2**32 + 5)
-PRNG_NORMAL_ULPS = 2      # normal: XLA's erf_inv and log1p, elementwise in float32
+PRNG_NORMAL_ULPS = 0      # normal: XLA's erf_inv, log1p and sqrt, every step correctly rounded
 PRNG_TAIL = 3.0           # |normal| past it comes from erf_inv's tail branch (w >= 5)
+PRNG_REFINE_SHAPE = (1 << 20, 3)   # one refine-sized normal draw
+XLA_MATH_SWEEP = 1 << 20  # inputs a function of core.xla_math, card against CPU
+XLA_MATH_RANGES = dict(   # tests/test_torch_xla_math.py's draw ranges, halved
+    exp=((-4.0, 1.0), (-90.0, 90.0)), sin=((0.0, 2 * math.pi), (-130.0, 130.0)),
+    cos=((0.0, 2 * math.pi), (-130.0, 130.0)), sqrt=((0.0, 1.0), (5.0, 40.0)))
+
+
+def differing(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Elements of two float32 tensors whose bits differ (NaN equal to NaN)."""
+    g, w = got.cpu(), want.cpu()
+    same = (g.view(torch.int32) == w.view(torch.int32)) | (g.isnan() & w.isnan())
+    return int((~same).sum())
+
+
+def prng_large(dev) -> dict:
+    """What a refine draws and what feeds it, card against CPU: one
+    normal(key(seed 0), PRNG_REFINE_SHAPE), erf_inv over every float32 of
+    its tail branch (0.9966 <= |x| < 1: 114,086 inputs) and core.xla_math's
+    exp, sin, cos and sqrt over XLA_MATH_SWEEP seeded inputs each; returns
+    the count of differing elements of each."""
+    out = {}
+    draws = [prng.normal(prng.key(PRNG_SEEDS[0], device=d), PRNG_REFINE_SHAPE)
+             for d in ("cpu", dev)]
+    out[f"normal{PRNG_REFINE_SHAPE}"] = differing(draws[1], draws[0])
+    pos = torch.arange(int(np.float32(0.9966).view(np.int32)),
+                       int(np.float32(1.0).view(np.int32)), dtype=torch.int32).view(torch.float32)
+    tail = torch.cat([pos, -pos])
+    require(tail.numel() == 114_086, f"erf_inv's tail: {tail.numel()} inputs")
+    out["erf_inv tail"] = differing(prng.erf_inv(tail.to(dev)), prng.erf_inv(tail))
+    rng = np.random.default_rng(16)
+    for name, ranges in XLA_MATH_RANGES.items():
+        x = torch.from_numpy(np.concatenate([
+            rng.uniform(lo, hi, XLA_MATH_SWEEP // len(ranges)) for lo, hi in ranges
+        ]).astype(np.float32))
+        fn = getattr(xla_math, name)
+        out[name] = differing(fn(x.to(dev)), fn(x))
+    torch.cuda.synchronize()
+    return out
 
 
 def prng_draws(key) -> dict:
@@ -937,7 +980,7 @@ def phase_prng(dev):
     seed's key, a chain of three splits (5, 16, 3 keys) and a fold_in(17)
     of its end; keys, bits, uniform, randint and bernoulli bit for bit,
     normal within PRNG_NORMAL_ULPS float32 ulps, erf_inv's tail branch
-    among its draws."""
+    among its draws; then `prng_large`, every element equal."""
     t0 = time.perf_counter()
     n_cases, worst, tail = 0, 0, 0
     for seed in PRNG_SEEDS:
@@ -966,12 +1009,16 @@ def phase_prng(dev):
                     require(g.dtype == w.dtype and torch.equal(g, w),
                             f"prng seed {seed} {name}: the card's draw is not the CPU's")
     require(tail > 0, f"prng: no normal draw past {PRNG_TAIL} (erf_inv's tail branch)")
+    large = prng_large(dev)
     secs = time.perf_counter() - t0
     log(f"# prng: {n_cases} streams of {len(PRNG_SEEDS)} seeds (keys, a split chain, "
         f"fold_in) on the card: keys, bits, uniform, randint, bernoulli bit-equal to the "
         f"CPU; normal within {worst} ulp (limit {PRNG_NORMAL_ULPS}), {tail} draws past "
-        f"{PRNG_TAIL}; {secs:.1f} s")
-    return dict(cases=n_cases, normal_max_ulps=worst, normal_tail_draws=tail, seconds=secs)
+        f"{PRNG_TAIL}; elements differing card against CPU {large}; {secs:.1f} s")
+    bad = {k: v for k, v in large.items() if v}
+    require(not bad, f"prng: the card's draws or XLA math differ from the CPU's: {bad}")
+    return dict(cases=n_cases, normal_max_ulps=worst, normal_tail_draws=tail,
+                differing=large, seconds=secs)
 
 
 def phase_goldens(dev):
@@ -1197,6 +1244,24 @@ def train_config(args, **kw):
     return cfg.replace(control=dataclasses.replace(cfg.control, refine_every=REFINE_EVERY), **kw)
 
 
+@contextlib.contextmanager
+def normal_recorded(draws: list):
+    """Appends to `draws` (key, shape, draw) of every `prng.normal` call,
+    the key and the draw copied to the host, passing the draws through."""
+    saved = prng.normal
+
+    def call(key, shape=()):
+        out = saved(key, shape)
+        draws.append((key.cpu(), shape, out.cpu()))
+        return out
+
+    prng.normal = call
+    try:
+        yield
+    finally:
+        prng.normal = saved
+
+
 def phase_train(args, dev, state_sd, batches):
     """`Trainer.train` on the kernel path with the launch counters zeroed
     just before and read just after."""
@@ -1220,14 +1285,27 @@ def phase_train(args, dev, state_sd, batches):
         logged.append(metrics)
 
     torch.cuda.synchronize()
+    noise = []
     # the training path: kernel launches counted from here ...
     cuda_build.reset_launches()
     t0 = time.perf_counter()
-    trainer.train(TRAIN_STEPS, log_every=1, callback=on_step)
+    with normal_recorded(noise):
+        trainer.train(TRAIN_STEPS, log_every=1, callback=on_step)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = dict(cuda_build.LAUNCHES)
     # ... to here
+    # the refine's split noise of the background, drawn on the card, is the
+    # CPU's draw for the same key and out_cap
+    require(noise, "the refine drew no split noise")
+    key, shape, eps = noise[0]
+    want = prng.normal(key, shape)
+    noise_differing = differing(eps, want)
+    log(f"# training: the refine's noise normal(key, {tuple(shape)}) for the background "
+        f"(out_cap {shape[0]}), drawn on the card: {noise_differing} elements differ from "
+        f"the CPU's draw; {len(noise)} draws in the run")
+    require(noise_differing == 0, f"the refine's noise on the card differs from the CPU's "
+            f"at {noise_differing} elements")
     step_ms = list(1e3 * np.diff([t0] + stamps))
     losses = [m["total_loss"] for m in logged]
     l1 = [m["l1"] for m in logged]
@@ -1241,7 +1319,8 @@ def phase_train(args, dev, state_sd, batches):
         n_intersections=[m["n_intersections"] for m in logged],
         gaussians_before=n0, gaussians_after=n1, refine_events=trainer.refine_events,
         reset_steps=trainer.reset_steps, growth_events=trainer.growth_events,
-        first_metrics=logged[0], last_metrics=logged[-1], grad_errors=grad_errs)
+        first_metrics=logged[0], last_metrics=logged[-1], grad_errors=grad_errs,
+        refine_noise=dict(out_cap=int(shape[0]), draws=len(noise), differing=noise_differing))
     log(f"# training: {len(logged)} steps in {train_s:.2f} s, median "
         f"{res['ms_per_step_median']:.2f} ms/step after 2 warm-up steps; launches {launches}")
     log(f"# training: total loss {losses[0]:.5f} -> {losses[-1]:.5f}, psnr "

@@ -18,11 +18,15 @@ Everything is deterministic integer arithmetic on the caller's device:
 
 `normal` takes XLA's float32 `ErfInv` (Giles' single-precision
 polynomial) over XLA's CPU log1p (Cephes), with the multiply-adds that
-XLA's CPU compiler fuses computed as fused (`_fma`, exact in float64); a
-few draws in a hundred thousand still land 1-2 ulp from JAX's, where
-XLA's compiler fuses differently in context. The other samplers are
-bit-equal to JAX's. All of it is elementwise torch with correctly rounded
-operations, so the card draws what the CPU draws.
+XLA's CPU compiler fuses computed as fused and the tail branch's square
+root correctly rounded, as XLA's `vsqrtps` gives it (`core/xla_math.py`;
+torch's float32 sqrt on the CPU is not correctly rounded). On the CPU
+every draw is JAX's: 2^20 x 3 draws of seed 0, 300k and 900k of seeds 3
+and 123, and erf_inv on all 114,086 float32 of its tail branch, none a
+bit apart. The other samplers are bit-equal to JAX's too. Every step is an
+elementwise torch operation that rounds correctly on either device, so
+the card draws the CPU's bits (`chip_smoke.py` phase 2b: a 2^20 x 3 draw
+and the tail branch, card against CPU).
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ import math
 from typing import Sequence, Tuple, Union
 
 import torch
+
+from mtgs_torch.core import xla_math
 
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -42,18 +48,6 @@ _ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06
                  0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
 _ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
                  0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
-# XLA's CPU log1p: Cephes' rational approximation below |x| = sqrt(2) - 1,
-# log(1 + x) above it, by Cephes' polynomial log (float32 constants)
-_LOG1P_SMALL = 0.41421356
-_LOG1P_DEN = (1.0, 15.062909083469192, 83.04756596796721, 221.76239823732856,
-              309.0987222531206, 216.42788614495947, 60.118660497603844)
-_LOG1P_NUM = (4.5270000862445199635215e-5, 0.49854102823193376, 6.578732594206104,
-              29.911919328553073, 60.94966798098779, 57.11296359058554, 20.03955349920128)
-_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
-          1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
-          3.3333331174e-1)
-_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
-_SQRT_HALF = 0.707106781186547524
 
 
 def _shape(shape: Shape) -> Tuple[int, ...]:
@@ -131,78 +125,26 @@ def _f32(x: float, device) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=device)
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 a * b + c rounded once, as XLA's CPU backend contracts it:
-    the product is exact in float64, and a sum that rounds in float64 onto
-    a float32 tie is moved off it by the sign of its rounding error."""
-    p = a.double() * b.double()
-    cd = c.double()
-    s = p + cd
-    bp = s - p
-    err = (p - (s - bp)) + (cd - bp)          # s + err == p + c exactly
-    tie = (s.view(torch.int64) & ((1 << 29) - 1)) == (1 << 28)
-    inf = torch.full_like(s, math.inf)
-    s = torch.where(tie & (err > 0), torch.nextafter(s, inf), s)
-    s = torch.where(tie & (err < 0), torch.nextafter(s, -inf), s)
-    return s.float()
-
-
 def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """`jax.random.uniform`: float32 in [minval, maxval), computed in
     float32 as (u * (maxval - minval) + minval) clamped below at minval."""
     shape = _shape(shape)
     lo, hi = _f32(minval, key.device), _f32(maxval, key.device)
-    return torch.maximum(lo, _fma(_unit(key, shape), hi - lo, lo))
-
-
-def _log(y: torch.Tensor) -> torch.Tensor:
-    """XLA's CPU float32 log of y > 0 (Cephes): y = m * 2^e with m in
-    [sqrt(1/2), sqrt(2)), a degree-8 polynomial in m - 1, its products
-    fused where XLA's compiler fuses them."""
-    c = lambda v: _f32(v, y.device)
-    bits = torch.maximum(y, c(2.0 ** -126)).view(torch.int32)
-    e = ((bits >> 23) - 127).float() + 1.0
-    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
-    low = m < c(_SQRT_HALF)
-    e = e - low.float()
-    x = (m - 1.0) + torch.where(low, m, c(0.0))
-    x2 = x * x
-    x3 = x2 * x
-    p = _LOG_P
-    y0 = _fma(_fma(x, c(p[0]), c(p[1])), x, c(p[2]))
-    y1 = _fma(_fma(x, c(p[3]), c(p[4])), x, c(p[5]))
-    y2 = _fma(_fma(x, c(p[6]), c(p[7])), x, c(p[8]))
-    t = _fma(_fma(y0, x3, y1), x3, y2)
-    t = _fma(t, x3, e * c(_LOG_Q1))
-    return _fma(e, c(_LOG_Q2), _fma(-x2, c(0.5), x) + t)
-
-
-def _log1p(x: torch.Tensor) -> torch.Tensor:
-    """XLA's CPU float32 log1p (x > -1)."""
-    c = lambda v: _f32(v, x.device)
-    x2 = x * x
-    den = torch.ones_like(x)
-    for k in _LOG1P_DEN[1:]:
-        den = _fma(den, x, c(k))
-    num = torch.full_like(x, _LOG1P_NUM[0])
-    for k in _LOG1P_NUM[1:]:
-        num = _fma(num, x, c(k))
-    small = x + _fma(x2, c(-0.5), (x * x2) * (num / den))
-    return torch.where(x.abs() < c(_LOG1P_SMALL), small, _log(x + 1.0))
+    return torch.maximum(lo, xla_math.fma(_unit(key, shape), hi - lo, lo))
 
 
 def erf_inv(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ErfInv (Giles' single-precision approximation), with
     XLA's CPU log1p and its fused multiply-adds."""
-    w = -_log1p(x * -x)
+    w = -xla_math.log1p(x * -x)
     small = w < 5.0
-    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(small, w - 2.5, xla_math.sqrt(w) - 3.0)
     coef = lambda i: torch.where(small, _f32(_ERFINV_SMALL[i], x.device),
                                  _f32(_ERFINV_LARGE[i], x.device))
     p = coef(0)
     for i in range(1, len(_ERFINV_SMALL)):
-        p = _fma(p, w, coef(i))
+        p = xla_math.fma(p, w, coef(i))
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 

@@ -9,7 +9,7 @@ import math
 
 import torch
 
-from mtgs_torch.core import prng
+from mtgs_torch.core import prng, xla_math
 
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -123,13 +123,15 @@ def slerp(q0: torch.Tensor, q1: torch.Tensor, t: torch.Tensor,
 def random_quats(key: torch.Tensor, n: int) -> torch.Tensor:
     """Uniformly random unit quaternions [n, 4] (Shoemake's method), float32,
     drawn as JAX draws them from `split(key, 3)` (a `core.prng` key) on the
-    key's device."""
+    key's device, with XLA's CPU sqrt, sin and cos (`core.xla_math`), so
+    the quaternions are JAX's bit for bit."""
     k1, k2, k3 = prng.split(key, 3)
     u = prng.uniform(k1, (n,))
     v = prng.uniform(k2, (n,)) * 2.0 * math.pi
     w = prng.uniform(k3, (n,)) * 2.0 * math.pi
-    return torch.stack([torch.sqrt(1.0 - u) * torch.sin(v), torch.sqrt(1.0 - u) * torch.cos(v),
-                        torch.sqrt(u) * torch.sin(w), torch.sqrt(u) * torch.cos(w)], dim=-1)
+    a, b = xla_math.sqrt(1.0 - u), xla_math.sqrt(u)
+    return torch.stack([a * xla_math.sin(v), a * xla_math.cos(v),
+                        b * xla_math.sin(w), b * xla_math.cos(w)], dim=-1)
 
 
 def rotate_vector_to_vector(v1: torch.Tensor, v2: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

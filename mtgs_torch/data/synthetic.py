@@ -9,8 +9,9 @@ rendered depth stands in for LiDAR.
 
 The ground truth is drawn as the JAX package draws it: `core.prng`'s copy
 of `jax.random` from `key(seed)`, split and transformed with JAX's
-primitives, shapes and keys, on the CPU (so a seed gives the same scene
-on the CPU and on the card). The seed subsample and its noise, the
+primitives, shapes and keys, and with XLA's CPU sin, cos and exp
+(`core.xla_math`), on the CPU (so a seed gives the same scene on the CPU
+and on the card, bit for bit JAX's). The seed subsample and its noise, the
 instance pose noise and the batch order are numpy draws in both packages.
 So one seed gives the JAX package's scene. `SyntheticScene` holds numpy
 arrays only, so a scene cache written by either package loads in the
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from mtgs_torch import resolve_device
-from mtgs_torch.core import prng
+from mtgs_torch.core import prng, xla_math
 from mtgs_torch.core.camera import camera_to_gsplat_viewmat
 from mtgs_torch.core.quat import quat_mult, quat_rotate
 from mtgs_torch.raster import RasterizeConfig, rasterize
@@ -79,7 +80,8 @@ def _gt_gaussians(key: torch.Tensor, n_bg: int, extent: float,
     a far backdrop ring 5%; `color_noise` adds per-gaussian speckle that
     the reconstruction can only resolve by densifying. Every array is
     drawn from `key` (a `core.prng` key on the CPU) with JAX's primitive,
-    bounds, shape and key, and computed in float32 as JAX does. Returns
+    bounds, shape and key, and computed in float32 as JAX's eager ops do
+    (sin, cos and exp as XLA's CPU code computes them). Returns
     float32 numpy (means [n, 3], quats [n, 4], linear scales [n, 3],
     opacities [n], colors [n, 3])."""
     ks = prng.split(key, 16)
@@ -95,8 +97,8 @@ def _gt_gaussians(key: torch.Tensor, n_bg: int, extent: float,
     gx = prng.uniform(ks[0], (n_ground,), -extent, extent)
     gy = prng.uniform(ks[1], (n_ground,), -extent, extent)
     ground = torch.stack([gx, gy, torch.zeros_like(gx)], -1)
-    gcol = torch.stack([0.5 + 0.4 * torch.sin(gx * 0.7), 0.5 + 0.4 * torch.cos(gy * 0.9),
-                        0.4 + 0.3 * torch.sin((gx + gy) * 0.5)], -1)
+    gcol = torch.stack([0.5 + 0.4 * xla_math.sin(gx * 0.7), 0.5 + 0.4 * xla_math.cos(gy * 0.9),
+                        0.4 + 0.3 * xla_math.sin((gx + gy) * 0.5)], -1)
     gscale = torch.stack([full((n_ground,), ground_scale), full((n_ground,), ground_scale),
                           full((n_ground,), min(0.05, ground_scale / 4))], -1)
     gquat = unit_quats(n_ground)
@@ -117,9 +119,9 @@ def _gt_gaussians(key: torch.Tensor, n_bg: int, extent: float,
     build = torch.stack([bx, by, bw[:, 2]], -1)[which] + off * bw[which]  # fill the box
     build[:, 2] = torch.maximum(build[:, 2], torch.tensor(0.05))
     # facade stripes: the buildings' own high-frequency texture
-    stripe = 0.15 * torch.sin(build[:, 2] * 4.0)[:, None]
+    stripe = 0.15 * xla_math.sin(build[:, 2] * 4.0)[:, None]
     bcols = torch.clamp(bcol[which] + stripe, 0.02, 1.0)
-    bscale = torch.exp(prng.normal(ks[5], (n_build, 3)) * 0.25 - 1.35)
+    bscale = xla_math.exp(prng.normal(ks[5], (n_build, 3)) * 0.25 - 1.35)
     bquat = prng.normal(ks[6], (n_build, 4))
 
     # roadside objects: small clusters (trees, poles) near the road
@@ -133,7 +135,7 @@ def _gt_gaussians(key: torch.Tensor, n_bg: int, extent: float,
     objs = torch.stack([cx, cy, cz], -1)[ow] + 0.6 * prng.normal(ks[9], (n_obj, 3))
     objs[:, 2] = torch.abs(objs[:, 2]) + 0.1
     ocols = torch.clamp(ccol[ow] + 0.1 * prng.normal(ks[10], (n_obj, 3)), 0.02, 1.0)
-    oscale = torch.exp(prng.normal(ks[11], (n_obj, 3)) * 0.3 - 1.6)
+    oscale = xla_math.exp(prng.normal(ks[11], (n_obj, 3)) * 0.3 - 1.6)
     oquat = prng.normal(ks[12], (n_obj, 4))
 
     # far backdrop: a coarse ring past the block edge (horizon content;
@@ -141,9 +143,9 @@ def _gt_gaussians(key: torch.Tensor, n_bg: int, extent: float,
     th = prng.uniform(ks[13], (n_back,), 0.0, 2 * math.pi)
     rr = extent * (1.3 + 0.4 * prng.uniform(ks[14], (n_back,)))
     bz = prng.uniform(ks[15], (n_back,), 0.0, extent * 0.25)
-    back = torch.stack([rr * torch.cos(th), rr * torch.sin(th), bz], -1)
-    backcol = torch.stack([0.35 + 0.3 * torch.sin(th * 3), 0.4 + 0.2 * torch.cos(th * 5),
-                           0.5 + 0.2 * torch.sin(th * 2 + 1.0)], -1)
+    back = torch.stack([rr * xla_math.cos(th), rr * xla_math.sin(th), bz], -1)
+    backcol = torch.stack([0.35 + 0.3 * xla_math.sin(th * 3), 0.4 + 0.2 * xla_math.cos(th * 5),
+                           0.5 + 0.2 * xla_math.sin(th * 2 + 1.0)], -1)
     backscale = full((n_back, 3), extent * 0.02)
     backquat = unit_quats(n_back)
 
@@ -164,7 +166,7 @@ def _instance_gaussians(key: torch.Tensor, m: int):
     ks = prng.split(key, 3)
     xyz = prng.uniform(ks[0], (m, 3), -0.5, 0.5) * torch.tensor([4.0, 2.0, 1.5])
     col = torch.tensor([[0.85, 0.15, 0.1]]).repeat(m, 1) + 0.1 * prng.normal(ks[1], (m, 3))
-    scales = torch.exp(prng.normal(ks[2], (m, 3)) * 0.2 - 1.8)
+    scales = xla_math.exp(prng.normal(ks[2], (m, 3)) * 0.2 - 1.8)
     quats = torch.tensor([[1.0, 0, 0, 0]]).repeat(m, 1)
     return _numpy(xyz, quats, scales, torch.full((m,), 0.95), torch.clamp(col, 0, 1))
 

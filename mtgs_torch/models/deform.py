@@ -17,7 +17,7 @@ from typing import Tuple
 import torch
 
 from mtgs_torch import resolve_device
-from mtgs_torch.core import prng
+from mtgs_torch.core import prng, xla_math
 
 X_MULTIRES = 10
 T_MULTIRES = 10
@@ -69,7 +69,7 @@ def init_deform_mlp(key: torch.Tensor, embed_dim: int = 16, *,
     ws, bs = [], []
     for i in range(DEPTH):
         fan_in = dims[i] + (d_in if i == SKIP else 0)
-        w = prng.normal(keys[i], (fan_in, HIDDEN)) * torch.tensor(2.0 / fan_in).sqrt()
+        w = prng.normal(keys[i], (fan_in, HIDDEN)) * xla_math.sqrt(torch.tensor(2.0 / fan_in))
         ws.append(w.to(dev))
         bs.append(zeros(HIDDEN))
     head = lambda k, n: (prng.normal(k, (HIDDEN, n)) * 1e-4).to(dev)  # near-identity start

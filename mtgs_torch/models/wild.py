@@ -16,7 +16,7 @@ from dataclasses import dataclass
 import torch
 
 from mtgs_torch import resolve_device
-from mtgs_torch.core import prng
+from mtgs_torch.core import prng, xla_math
 from mtgs_torch.core.sh import sh_to_rgb
 
 EMBED_DIM = 32
@@ -42,7 +42,7 @@ def init_wild(key: torch.Tensor, num_images: int, *, device="cuda") -> WildAppea
     card unless it says otherwise)."""
     dev = resolve_device(device)
     k = prng.split(key, 4)
-    he = lambda kk, i, o: prng.normal(kk, (i, o)) * torch.tensor(2.0 / i).sqrt()
+    he = lambda kk, i, o: prng.normal(kk, (i, o)) * xla_math.sqrt(torch.tensor(2.0 / i))
     zeros = lambda n: torch.zeros((n,), dtype=torch.float32, device=dev)
     return WildAppearanceParams(
         embeddings=(prng.normal(k[0], (num_images, EMBED_DIM)) * 0.01).to(dev),

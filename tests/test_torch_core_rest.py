@@ -6,8 +6,8 @@ the function use it (`redistort_image`: tests/test_eval_metrics.py; the SH
 colour: tests/test_core_math.py; the velocities: tests/test_models.py).
 `random_quats` draws JAX's uniforms from a `core.prng` key: it is held
 as tests/test_core_math.py holds the JAX one (unit norm, uniform on the
-sphere), and against JAX's on the same key (1e-6: sin, cos and sqrt may
-round an ulp apart).
+sphere), and against JAX's on the same key bit for bit (XLA's CPU sqrt,
+sin and cos, `core/xla_math.py`).
 """
 
 import math
@@ -157,13 +157,13 @@ def test_random_quats_are_uniform_unit_quaternions():
     assert not torch.equal(q, tquat.random_quats(prng.key(1), 20000))
 
 
-@pytest.mark.parametrize("seed, n", [(0, 257), (11, 1000)])
+@pytest.mark.parametrize("seed, n", [(0, 257), (11, 1000), (0, 20000)])
 def test_random_quats_formula_matches_jax(seed, n):
     """Shoemake's formula on JAX's uniforms: the same key, the same
-    quaternions."""
-    want = jquat.random_quats(jax.random.key(seed), n)
-    got = tquat.random_quats(prng.key(seed), n)
-    close(got, want)
+    quaternions, bit for bit."""
+    want = np.asarray(jquat.random_quats(jax.random.key(seed), n))
+    got = tquat.random_quats(prng.key(seed), n).numpy()
+    assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
 def test_rotate_vector_to_vector_matches():
