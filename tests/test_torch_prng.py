@@ -20,16 +20,6 @@ from mtgs_torch.core import prng
 SEEDS = [int(s) for s in np.random.default_rng(15).integers(0, 2**31 - 1, 3)]
 
 
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """The CPU runs here are small: two threads keep the test workers from
-    oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 def raw(key):
     return np.asarray(jax.random.key_data(key)).astype(np.int64)
 

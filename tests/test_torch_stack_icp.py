@@ -52,14 +52,6 @@ def assert_same_cloud(got, want):
     assert ulps32(got[0], want[0]) <= 1 and ulps32(got[1], want[1]) <= 1
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 # ------------------------------------------------------------ stacking
 
 

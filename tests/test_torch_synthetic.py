@@ -41,16 +41,6 @@ SCENE_KW = dict(seed=0, width=W, height=H, n_travels=2, n_frames=2, n_bg=N_BG,
                 n_instance=N_INST, n_seed=200, color_noise=0.25, gt_max_intersections=1 << 12)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """The CPU runs here are small: two threads keep the test workers from
-    oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 def close_gt(got, want, msg=""):
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-6, atol=1e-6, err_msg=msg)
 

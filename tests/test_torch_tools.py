@@ -52,16 +52,6 @@ RESULT = {"psnr": 21.573419570922852, "ssim": 0.7125, "cc_psnr": 22.0, "lpips": 
           "trv1_dinov2_sim": 0.8}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """The CPU runs here are small: two threads keep the test workers from
-    oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 def tables(out: Path) -> tuple:
     return ((out / "results_summary.csv").read_bytes(), (out / "paste_table.tsv").read_bytes())
 
@@ -155,7 +145,8 @@ def test_slot_manager_under_contention(tmp_path):
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
     held = sorted(s for s in got if s is not None)
     assert held == [0, 1, 2] and got.count(None) == 5
     assert sorted(p.name for p in (tmp_path / ".locks").iterdir()) == [

@@ -40,16 +40,6 @@ RUN = ["--device", "cpu", "--width", str(W // 2), "--height", str(H // 2), "--sc
        "--travels", "0", "1", "--eval-travels", "2"]
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The CPU renders here are small: one thread each keeps the test
-    workers from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def block(tmp_path_factory):
     root = tmp_path_factory.mktemp("road_block")

@@ -22,14 +22,6 @@ from mtgs_torch.core import xla_math
 N = 1 << 18   # four ranges of N a function
 
 
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 RANGES = {
     "exp": [(-4.0, 1.0), (-2.5, -0.5), (-90.0, 90.0), (-88.0, -86.0)],
     "sin": [(0.0, 2 * np.pi), (-45.0, 45.0), (0.0, 80.0), (-130.0, 130.0)],
